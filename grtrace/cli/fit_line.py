@@ -68,7 +68,6 @@ def main(argv=None):
     p.add_argument('--bins', type=int, default=64)
     p.add_argument('--g-range', type=float, nargs=2, default=[0.1, 1.6])
     p.add_argument('--disk-r-out', type=float, default=14.0)
-    p.add_argument('--backend', type=str, default='auto')
     p.add_argument('--dtype', type=str, default='float32',
                    choices=['float32', 'float64'])
     p.add_argument('--gauss-newton', type=int, default=0, metavar='N',
@@ -108,14 +107,12 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    from ..engine.integrate import resolve_backend
     from ..sharding.grid import g_bin_centers, line_profile_grid_sharded
     from ..sharding.mesh import make_mesh
 
     g_lo, g_hi = (float(x) for x in args.g_range)
     centers = g_bin_centers(args.bins, g_lo, g_hi)
     dtype = jnp.float64 if args.dtype == 'float64' else jnp.float32
-    backend = resolve_backend(args.backend)
     mesh = make_mesh(1, len(jax.devices()))
 
     def sweep(spins, elevs):
@@ -123,8 +120,7 @@ def main(argv=None):
             mesh, np.asarray(spins, np.float64),
             np.asarray(elevs, np.float64), 30.0, np.deg2rad(80.0), 1.0,
             0.0, 31.0, args.steps, args.delta, 1.0, args.disk_r_out,
-            height=args.size, width=args.size, backend=backend,
-            dtype=dtype, n_bins=args.bins,
+            height=args.size, width=args.size, dtype=dtype, n_bins=args.bins,
             emissivity=(float(args.emissivity),), g_lo=g_lo, g_hi=g_hi),
             np.float64)[:, 0]
 

@@ -48,7 +48,6 @@ def main(argv=None):
     p.add_argument('--g-range', type=float, nargs=2, default=[0.1, 1.6],
                    metavar=('LO', 'HI'))
     p.add_argument('--order', type=int, default=2, choices=[2, 4, 6, 8])
-    p.add_argument('--backend', type=str, default='auto')
     p.add_argument('--dtype', type=str, default='float32',
                    choices=['float32', 'float64'])
     p.add_argument('--mesh-frames', type=int, default=None,
@@ -79,7 +78,6 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
-    from ..engine.integrate import resolve_backend
     from ..sharding.grid import g_bin_centers, line_profile_grid_sharded
     from ..sharding.mesh import make_mesh
 
@@ -93,7 +91,6 @@ def main(argv=None):
     mf = args.mesh_frames or 1
     mesh = make_mesh(mf, n_dev // mf)
     dtype = jnp.float64 if args.dtype == 'float64' else jnp.float32
-    backend = resolve_backend(args.backend)
     q_tuple = tuple(float(q) for q in args.emissivity)
     g_lo, g_hi = (float(v) for v in args.g_range)
 
@@ -103,7 +100,7 @@ def main(argv=None):
             np.deg2rad(args.fov), args.bh_mass, args.charge,
             args.boundary_radius, args.steps, args.delta, 1.0,
             args.disk_r_out, height=args.size, width=args.size,
-            order=args.order, backend=backend, dtype=dtype,
+            order=args.order, dtype=dtype,
             prograde=not args.retrograde, n_bins=args.bins,
             emissivity=q_tuple, g_lo=g_lo, g_hi=g_hi), np.float64)
 

@@ -43,8 +43,8 @@ def main(argv=None):
                         'overlay PNG')
     p.add_argument('--numeric', action='store_true',
                    help='bisect the REAL integrator boundary per azimuth '
-                        'and report pixel errors (production f32 path on '
-                        'TPU)')
+                        'and report pixel errors (the production f32 '
+                        'Kerr-Schild path)')
     p.add_argument('--numeric-azimuths', type=int, default=16,
                    help='azimuth fan for --numeric (each bisection round '
                         'traces azimuths x 9 rays)')
@@ -117,7 +117,6 @@ def main(argv=None):
             args.metric_param if beyond else args.charge,
             n_psi=args.numeric_azimuths,
             steps=args.steps, delta=args.delta, order=args.order,
-            backend=args.backend,
             metric=beyond or "KerrSchild")
         if rotating:
             _, ana_at_n = analytic_boundary_rotating(

@@ -35,8 +35,7 @@ def main(argv=None):
     p.add_argument("--platform", type=str, default="cpu",
                    choices=["cpu", "default"],
                    help="single-ray float64 diagnostics default to CPU "
-                        "(a 1-ray job cannot use the TPU; float64 there is "
-                        "emulated and cold-compiles slowly)")
+                        "(a 1-ray job cannot use an accelerator)")
     args = p.parse_args(argv)
 
     import jax

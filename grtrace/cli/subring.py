@@ -70,8 +70,9 @@ def main(argv=None):
                         'supersampling cost)')
     p.add_argument('--backend', choices=('auto', 'pallas', 'xla'),
                    default='auto',
-                   help='Integrator backend (auto = the tuned Pallas '
-                        'subring kernel on TPU, XLA elsewhere)')
+                   help='Integrator backend (auto = the compensated '
+                        'Kerr-Schild flows on a GPU, the autodiff engine '
+                        'elsewhere)')
     p.add_argument('--out-dir', type=str, default='.')
     args = p.parse_args(argv)
     from . import driver_startup

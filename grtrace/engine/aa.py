@@ -17,7 +17,7 @@ render for that handful of pixels; this pass instead
   4. averages the sub-colors and scatters them back into the image.
 
 Cost: k_edge * s^2 extra rays ~ (s^2 / edge_fraction^-1) of the base
-render instead of s^2 x.  TPU-natively this is one more fused jit
+render instead of s^2 x.  On the device this is one more fused jit
 program over dense arrays — gather of camera rows, the usual masked
 while_loop, scatter of colors; no host round-trip between passes.
 
@@ -40,7 +40,7 @@ from ..physics.coords import cartesian_to_spherical
 from ..physics.spacetime import COORDS, METRICS, horizon_radius
 from . import classify as _classify
 from .integrate import STATUS_CAPTURED
-from .integrate_generic import integrate_batch_generic
+from .integrate_generic import integrate_batch_chart
 
 
 def edge_scores(cls):
@@ -93,14 +93,14 @@ def _scatter_averaged(image, idx, valid, colors, k_edge, samples, height,
 
 @partial(jax.jit,
          static_argnames=("height", "width", "steps", "samples", "k_edge",
-                          "metric", "order", "backend", "flip_theta",
+                          "metric", "order", "flip_theta",
                           "flip_phi", "has_background", "dtype"))
 def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
                          charge, boundary_radius, steps, delta, omega,
                          patch_center_theta, patch_center_phi,
                          patch_size_theta, patch_size_phi,
                          *, height, width, samples=2, k_edge=None,
-                         metric="KerrSchild", order=2, backend="xla",
+                         metric="KerrSchild", order=2,
                          flip_theta=False, flip_phi=False,
                          has_background=True, dtype=jnp.float32):
     """One jitted program: edge select -> sub-rays -> trace -> classify ->
@@ -141,15 +141,9 @@ def refine_edges_generic(cls, image, bg_array, obs_x, fov, mass, spin,
     q0 = q0.reshape(-1, 4)
     p0 = p0.reshape(-1, 4)
 
-    if backend == "pallas" and metric == "KerrSchild":
-        from .integrate_pallas_ks import integrate_batch_pallas_ks
-        final_q, final_p, status, n_steps = integrate_batch_pallas_ks(
-            q0, p0, steps, delta, params, boundary_radius, omega,
-            order=order, compensated=dtype == jnp.float32)
-    else:
-        final_q, final_p, status, n_steps = integrate_batch_generic(
-            q0, p0, steps, delta, params, boundary_radius, omega,
-            order=order, metric=metric)
+    final_q, final_p, status, n_steps = integrate_batch_chart(
+        q0, p0, steps, delta, params, boundary_radius, omega,
+        order=order, metric=metric, dtype=dtype)
 
     if cartesian:
         rho, th, ph = cartesian_to_spherical(final_q[:, 1], final_q[:, 2],
@@ -239,7 +233,7 @@ def refine_edges_schwarzschild(cls, image, bg_array, obs_x, fov, mass,
 
 @partial(jax.jit,
          static_argnames=("height", "width", "steps", "samples", "k_edge",
-                          "order", "backend", "flip_theta", "flip_phi",
+                          "order", "flip_theta", "flip_phi",
                           "has_background", "dtype", "prograde", "profile",
                           "camera_moving"))
 def refine_edges_disk(cls, image, bg_array, obs_pos, fov, mass, spin,
@@ -249,7 +243,7 @@ def refine_edges_disk(cls, image, bg_array, obs_pos, fov, mass, spin,
                       patch_size_theta, patch_size_phi,
                       camera_omega=0.0,
                       *, height, width, samples=2, k_edge=None, order=2,
-                      backend="xla", flip_theta=False, flip_phi=False,
+                      flip_theta=False, flip_phi=False,
                       has_background=True, dtype=jnp.float32,
                       prograde=True, profile="shakura",
                       camera_moving=False):
@@ -291,7 +285,7 @@ def refine_edges_disk(cls, image, bg_array, obs_pos, fov, mass, spin,
         q0.reshape(-1, 4), p0.reshape(-1, 4), bg_array, params, r_obs,
         r_obs_bl, th_obs, boundary_radius, steps, delta, omega, r_in,
         r_out, t_peak, exposure, patch_center_theta, patch_center_phi,
-        patch_size_theta, patch_size_phi, order=order, backend=backend,
+        patch_size_theta, patch_size_phi, order=order,
         dtype=dtype, prograde=prograde, profile=profile,
         flip_theta=flip_theta, flip_phi=flip_phi,
         has_background=has_background,

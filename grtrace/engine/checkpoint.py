@@ -166,7 +166,7 @@ class IntegrationState:
     def save(self, path: str) -> None:
         """Persist the carry.  A '.npz' path saves a single compressed file;
         any other path saves an orbax checkpoint directory (the multi-frame
-        job format the TPU plan names, SURVEY section 5 — async-friendly,
+        job format of SURVEY section 5 — async-friendly,
         per-array files, safe atomic finalization)."""
         if str(path).endswith(".npz"):
             np.savez_compressed(path, **self._tree())
@@ -353,7 +353,7 @@ def advance(st: IntegrationState, chunk_steps: int, backend: str = "xla",
             interpret: bool = False) -> IntegrationState:
     """Advance by at most chunk_steps (bounded wall-time per call).
 
-    backend 'xla' runs the masked while_loop; 'pallas' the TPU kernel —
+    backend 'xla' runs the masked while_loop; 'pallas' the GPU kernel —
     identical semantics (bit-identical for the 'eqc' layout, whose kernel
     and XLA twin compile the same step functions), so a job may even
     switch backends between chunks.  'auto' resolves by platform.
@@ -403,7 +403,7 @@ def integrate_chunked(q0s, p0s, steps, delta, rs, r_max, omega,
     semantics, so the result is the same trajectory), but interruptible:
     with checkpoint_path set, the state is saved after every chunk and a
     killed job resumes from the last chunk with resume=True.  backend
-    'pallas' runs the chunks through the TPU kernel.
+    'pallas' runs the chunks through the GPU kernel.
 
     compensated=None auto-selects the production numerics the render
     pipeline would use (engine.integrate.integrate_dispatch): float32

@@ -8,7 +8,7 @@ emitters (physics/orbits.py) and a Shakura-Sunyaev temperature profile.
 This is the classic "Interstellar" image — the disk's far side lensed into
 arcs above and below the shadow, the approaching limb Doppler-boosted.
 
-TPU-native design: the crossing detector rides the same masked
+Design: the crossing detector rides the same masked
 `lax.while_loop` array program as engine.integrate_generic — an extra
 (hit, hit_q, hit_p) carry records the first equatorial crossing inside the
 annulus, linearly interpolated within the step (the shading inputs E = -p_t
@@ -529,7 +529,7 @@ def resolve_camera_omega(scene, disk):
 def _trace_shade_flat(q0f, p0f, bg_array, params, r_obs, r_obs_bl, th_obs,
                       boundary_radius, steps, delta, omega, r_in, r_out,
                       t_peak, exposure, patch_center_theta, patch_center_phi,
-                      patch_size_theta, patch_size_phi, *, order, backend,
+                      patch_size_theta, patch_size_phi, *, order,
                       dtype, prograde, profile, flip_theta, flip_phi,
                       has_background, omega_obs=None, metric="KerrSchild"):
     """The per-ray disk chain on FLAT (N, 4) phase points: integrate with
@@ -541,19 +541,9 @@ def _trace_shade_flat(q0f, p0f, bg_array, params, r_obs, r_obs_bl, th_obs,
     from . import classify as _classify
 
     n = q0f.shape[0]
-    if backend == "pallas" and metric == "KerrSchild":
-        # the tuned Pallas disk kernel hand-inlines the Kerr-Newman H;
-        # the mass-function families ride the autodiff XLA twin
-        from .integrate_pallas_ks import integrate_batch_pallas_disk
-        final_q, final_p, status, n_steps, hit_q, hit_p = \
-            integrate_batch_pallas_disk(
-                q0f, p0f, steps, delta, params, boundary_radius, omega,
-                r_in, r_out, order=order, compensated=dtype == jnp.float32)
-    else:
-        final_q, final_p, status, n_steps, hit_q, hit_p = \
-            integrate_batch_disk(
-                q0f, p0f, steps, delta, params, boundary_radius, omega,
-                r_in, r_out, order=order, metric=metric)
+    final_q, final_p, status, n_steps, hit_q, hit_p = integrate_batch_disk(
+        q0f, p0f, steps, delta, params, boundary_radius, omega,
+        r_in, r_out, order=order, metric=metric)
 
     disk_mask = status == STATUS_DISK
     if omega_obs is None:
@@ -604,7 +594,7 @@ def _trace_shade_flat(q0f, p0f, bg_array, params, r_obs, r_obs_bl, th_obs,
 @partial(jax.jit,
          static_argnames=("height", "width", "steps", "order", "flip_theta",
                           "flip_phi", "has_background", "dtype", "prograde",
-                          "backend", "profile", "camera_moving", "metric"))
+                          "profile", "camera_moving", "metric"))
 def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
                        boundary_radius, steps, delta, omega,
                        r_in, r_out, t_peak, exposure,
@@ -613,18 +603,15 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
                        camera_omega=0.0,
                        *, height, width, order=2, flip_theta=False,
                        flip_phi=False, has_background=True,
-                       dtype=jnp.float32, prograde=True, backend="xla",
+                       dtype=jnp.float32, prograde=True,
                        profile="shakura", camera_moving=False,
                        metric="KerrSchild"):
     """One compiled program: camera -> disk integration -> shade + classify
     -> RGB.  Mirrors render_pixels_generic with the disk overlay on top;
     obs_pos is a full (3,) position (the disk camera may sit above the
-    plane, physics.camera.pixel_grid_lookat).
-
-    backend='pallas' runs the tuned KS kernel's disk twin
-    (integrate_pallas_ks.integrate_batch_pallas_disk; Kahan-compensated
-    in float32, like render_generic's production path); 'xla' the
-    autodiff while_loop engine (integrate_batch_disk)."""
+    plane, physics.camera.pixel_grid_lookat).  The integrator is the
+    autodiff while_loop engine with the crossing monitor
+    (integrate_batch_disk)."""
     from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
     from . import classify as _classify
 
@@ -654,7 +641,7 @@ def render_pixels_disk(bg_array, obs_pos, fov, mass, spin, charge,
         q0.reshape(n, 4), p0.reshape(n, 4), bg_array, params, r_obs,
         r_obs_bl, th_obs, boundary_radius, steps, delta, omega, r_in,
         r_out, t_peak, exposure, patch_center_theta, patch_center_phi,
-        patch_size_theta, patch_size_phi, order=order, backend=backend,
+        patch_size_theta, patch_size_phi, order=order,
         dtype=dtype, prograde=prograde, profile=profile,
         flip_theta=flip_theta, flip_phi=flip_phi,
         has_background=has_background,
@@ -859,15 +846,12 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None, dtype=None,
     from .metrics import RenderMetrics
     from .render import RenderResult
 
-    from .integrate import resolve_backend
-
     disk = disk or DiskConfig()
     want_metrics = metrics is not None
     if metrics is None:
         metrics = RenderMetrics()
     h, w = scene.image_size
     integ = scene.integrator
-    backend = resolve_backend(integ.backend)
     if dtype is None:
         dtype = jnp.float64 if integ.dtype == "float64" else jnp.float32
     has_bg = bg_array is not None and disk.show_background
@@ -938,8 +922,8 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None, dtype=None,
             flip_theta=scene.patch.flip_theta,
             flip_phi=scene.patch.flip_phi,
             has_background=has_bg, dtype=dtype, prograde=disk.prograde,
-            backend=backend, profile=disk.profile,
-            camera_moving=camera_moving, metric=metric)
+            profile=disk.profile, camera_moving=camera_moving,
+            metric=metric)
 
         # Re-shade the disk pixels through THE shared shading executable
         # (shading_program): the same program io.transfer.reshade runs, so
@@ -986,7 +970,7 @@ def render_disk(scene, disk: DiskConfig = None, *, bg_array=None, dtype=None,
                 jnp.asarray(scene.patch.size_phi, dtype),
                 jnp.asarray(camera_omega, dtype),
                 height=h, width=w, samples=int(aa_samples),
-                order=integ.order, backend=backend,
+                order=integ.order,
                 flip_theta=scene.patch.flip_theta,
                 flip_phi=scene.patch.flip_phi,
                 has_background=has_bg, dtype=dtype,

@@ -8,7 +8,7 @@ combined gravitational + Doppler shift of circular Keplerian emitters
 non-Schwarzschild metrics (simulation/raytracing.py:164-280 composites
 background lensing only).
 
-TPU-native design — the DISK-TILT formulation.  Spherical symmetry makes
+Design — the DISK-TILT formulation.  Spherical symmetry makes
 the reference's equatorial beta-fold (utils.py:103-113) exact, so every
 camera ray integrates as a PLANAR orbit (theta = pi/2, p_theta = 0) in
 the 2D folded frame — half the state of the 3D Kerr-Schild chart and no

@@ -1,6 +1,6 @@
 """Flat-space (no-gravity) reference renderer — one fused jit.
 
-TPU-native counterpart of both reference flat paths: the per-pixel CPU double
+Array-program counterpart of both reference flat paths: the per-pixel CPU double
 loop (reference: simulation/background.py:99-132) and the CUDA kernels
 (simulation/cuda_geodesic.py:18-292).  Analytic ray-sphere intersection,
 spherical hit coordinates, interval patch test with phi wrap-around, and an

@@ -110,9 +110,10 @@ def _one_ray_exit_flat(i_f, j_f, obs_pos, fov, height, width,
     n = n / jnp.linalg.norm(n)
     rho = jnp.asarray(boundary_radius, dtype)
     # |x0 + s n| = rho, s > 0
-    b = jnp.dot(x0, n)
-    s = -b + jnp.sqrt(jnp.maximum(b * b + rho * rho - jnp.dot(x0, x0),
-                                  0.0))
+    hi = jax.lax.Precision.HIGHEST  # a GPU may run f32 dots in TF32
+    b = jnp.dot(x0, n, precision=hi)
+    s = -b + jnp.sqrt(jnp.maximum(b * b + rho * rho
+                                  - jnp.dot(x0, x0, precision=hi), 0.0))
     e = x0 + s * n
     th = jnp.arccos(jnp.clip(e[2] / rho, -1.0, 1.0))
     ph = jnp.arctan2(e[1], e[0])

@@ -1,15 +1,15 @@
 """Batched geodesic integration as a single XLA array program.
 
-TPU-native counterpart of the reference's CUDA kernels
+Array-program counterpart of the reference's CUDA kernels
 `fantasy_integrate_batch_ord2[_full]` (reference:
 simulation/cuda_geodesic.py:579-625) and the `CUDASchwarzschildIntegrator`
 wrapper (cuda_geodesic.py:629-653).  Instead of one CUDA thread per ray with a
 `break`, the whole (N,) ray batch advances inside one `lax.while_loop` whose
 body applies a masked FANTASY step to every ray; the loop terminates as soon
 as *all* rays have been captured/escaped or the step budget is exhausted.
-This is the portable backend (CPU tests, multi-chip dry-runs); the Pallas
-kernel in integrate_pallas.py is the single-chip fast path with per-tile
-early exit.
+This is the portable backend (CPU, sharded meshes); the Pallas GPU kernel in
+integrate_pallas.py is the one-launch fast path with per-block early exit,
+the reference kernel's own form.
 
 Status codes are first-class device-side masks (SURVEY.md section 5,
 failure-detection row):
@@ -33,39 +33,46 @@ STATUS_CAPTURED = 1
 STATUS_ESCAPED = 2
 
 
+BACKENDS = ("auto", "xla", "pallas")
+
+
 def resolve_backend(backend: str) -> str:
-    """'auto' -> 'pallas' on TPU, 'xla' elsewhere."""
+    """'auto' -> 'pallas' (the Pallas GPU kernel, integrate_pallas) on a
+    GPU, 'xla' elsewhere.  An explicit 'pallas' is kept as asked: without a
+    GPU the kernel raises instead of falling back."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
-    import jax
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
+    return "pallas" if jax.default_backend() == "gpu" else "xla"
 
 
 def integrate_dispatch(q0s, p0s, steps, delta, rs, r_max, omega,
-                       backend="auto", equatorial=False, order=2,
-                       unroll=None):
+                       backend="auto", equatorial=False, order=2):
     """Backend-dispatching integrate: same signature/returns for both.
 
     equatorial=True is a static promise that every ray has theta == pi/2
-    and p_theta == 0 (true for all camera rays after the beta fold) and
-    selects the trig-free Pallas kernel; the XLA backend ignores it (it
-    stays the bit-exact generic reference path).  order in {2,4,6,8}
-    selects the Yoshida-composed step (physics.hamiltonian); `steps` counts
-    composed steps, like EinsteinPy's GeodesicIntegrator.
+    and p_theta == 0 (true for all camera rays after the beta fold).
+    order in {2,4,6,8} selects the Yoshida-composed step
+    (physics.hamiltonian); `steps` counts composed steps, like EinsteinPy's
+    GeodesicIntegrator.
 
-    float32 equatorial rays get the Kahan-compensated kernel automatically:
-    measured on chip it costs NO wall-clock (the kernel is latency- not
-    flop-bound) and pins the 200k-step escape-direction error at ~2.8e-6
-    vs the float64 oracle, inside the 1e-5 north-star target that plain
-    float32 misses (tail ~2e-4).  float64 inputs keep the plain kernel.
+    float32 equatorial rays always get the Kahan-compensated integrator —
+    the kernel's compensated layout, or its XLA twin
+    integrate_batch_compensated: it pins the 200k-step escape-direction
+    error inside the 1e-5 target that plain float32 misses (tail ~2e-4,
+    tests/test_f32_accuracy.py).  float64 inputs keep the plain step (the
+    kernel's equatorial layout, or the generic XLA reference path).
     """
+    compensated = bool(equatorial) and q0s.dtype == jnp.float32
     if resolve_backend(backend) == "pallas":
         from .integrate_pallas import integrate_batch_pallas
-        compensated = bool(equatorial) and q0s.dtype == jnp.float32
         return integrate_batch_pallas(q0s, p0s, steps, delta, rs, r_max,
                                       omega, equatorial=equatorial,
-                                      order=order, compensated=compensated,
-                                      unroll=unroll)
+                                      order=order, compensated=compensated)
+    if compensated:
+        return integrate_batch_compensated(q0s, p0s, steps, delta, rs,
+                                           r_max, omega, order=order)
     return integrate_batch(q0s, p0s, steps, delta, rs, r_max, omega,
                            order=order)
 
@@ -255,11 +262,11 @@ def integrate_batch_compensated(q0s, p0s, steps, delta, rs, r_max, omega,
                                 order=2):
     """XLA twin of the compensated Pallas kernel (equatorial rays only).
 
-    Runs the EXACT staggered step functions the Pallas kernel compiles
-    (physics.hamiltonian.staggered_eqc) through a lax.while_loop, so CPU
-    tests can validate the compensated math at the full headline step
-    budget without interpret-mode cost, and kernel-vs-XLA parity checks
-    share one source of truth.  Requires theta == pi/2, p_theta == 0 for
+    Runs the EXACT staggered step functions the kernel compiles
+    (physics.hamiltonian.staggered_eqc) through a lax.while_loop: the
+    production float32 path wherever the kernel does not run, the oracle
+    of kernel-vs-XLA parity checks, and the way CPU tests validate the
+    compensated math at the full headline step budget.  Requires theta == pi/2, p_theta == 0 for
     every ray (the camera beta-fold guarantees this).
     """
     dtype = q0s.dtype
@@ -332,7 +339,7 @@ def integrate_batch_full(q0s, p0s, steps, delta, rs, r_max, omega, n_keep=None,
     The reference stores *every* step into an (N, steps, 4) buffer and the
     caller decimates to <= 1000 points afterwards
     (cuda_geodesic.py:604-625, raytracing.py:138-143).  Storing 200k steps per
-    ray is HBM-hostile, so the TPU design decimates on the fly: q1 is written
+    ray is memory-hostile, so this design decimates on the fly: q1 is written
     every `stride` steps so that at most n_keep samples exist, reproducing the
     caller-side `linspace` decimation.  Rows after a ray's exit stay zero,
     matching the reference buffer semantics (main.py:107-114 filters zeros).
@@ -387,8 +394,8 @@ class SchwarzschildIntegrator:
     """Drop-in analog of the reference CUDASchwarzschildIntegrator
     (cuda_geodesic.py:629-653) with the same constructor signature.
 
-    `backend` selects 'xla' (this module) or 'pallas'
-    (grtrace.engine.integrate_pallas) for `integrate_batch`.
+    `backend` selects 'xla' (this module) or 'pallas' (the GPU kernel,
+    grtrace.engine.integrate_pallas) for `integrate_batch`.
     """
 
     def __init__(self, steps=500, delta=0.2, mass=1.0, omega=1.0, r_max=1e6,

@@ -389,3 +389,20 @@ def trajectory_generic(q0, p0, steps, delta, params, omega, order=2,
     _, (qs, ps) = jax.lax.scan(scan_step, (q0, p0, q0, p0), None,
                                length=steps)
     return qs, ps
+
+
+def integrate_batch_chart(q0s, p0s, steps, delta, params, r_max, omega, *,
+                          order, metric, dtype):
+    """The production integrator for a generic-metric batch: float32
+    Kerr-Schild rays take the Kahan-compensated hand-derived flows
+    (engine.integrate_ks.integrate_batch_ksc), which pin the high-spin
+    shadow boundary at sub-pixel vs the f64 oracle where the plain f32
+    flows drift ~3 px at the prograde edge (physics.kerr_schild
+    compensated section); everything else rides the autodiff engine
+    (float64 is already at roundoff there)."""
+    if metric == "KerrSchild" and dtype == jnp.float32:
+        from .integrate_ks import integrate_batch_ksc
+        return integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max,
+                                   omega, order=order)
+    return integrate_batch_generic(q0s, p0s, steps, delta, params, r_max,
+                                   omega, order=order, metric=metric)

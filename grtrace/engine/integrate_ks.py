@@ -1,15 +1,13 @@
-"""Shared Kerr-Schild step machinery + the XLA twin of the KS kernels.
+"""Shared Kerr-Schild step machinery and the compensated KS integrators.
 
-The Pallas KS kernel (engine.integrate_pallas_ks) and the XLA twin here
-build their loop bodies from the SAME functions in this module — one
-source of truth for the staggered core composition, the null-invariant
-blow-up guard and the parking semantics — so kernel-vs-XLA parity checks
-compare Mosaic-vs-XLA compilation of identical code, exactly as the
-Schwarzschild pair does (engine.integrate.integrate_batch_compensated /
-the eqc kernel; the bench asserts zero mismatches on chip every round).
+The loop bodies are built from the functions in this module — one source
+of truth for the staggered core composition, the null-invariant blow-up
+guard and the parking semantics — and run through a lax.while_loop
+(integrate_batch_ksc, integrate_batch_subrings_ksc).  A hand-written GPU
+kernel for the same bodies would take them over unchanged, as the
+Schwarzschild kernel (engine.integrate_pallas) does with its XLA twin.
 
-All functions operate on component tuples of same-shape arrays: (N,)
-batches in the XLA twin, (8, 128) lane-major blocks inside the kernel.
+All functions operate on component tuples of same-shape (N,) arrays.
 Layouts: 16-tuple plain (physics.kerr_schild, rows q1/p1/q2/p2 x t,x,y,z)
 or 32-tuple Kahan-compensated (rows + deficit rows, kerr_schild
 compensated section).
@@ -36,8 +34,8 @@ from .integrate import STATUS_ALIVE, STATUS_CAPTURED, STATUS_ESCAPED
 
 def ks_scene_scalars(params, dtype):
     """(mass, a, charge, r_cap, plunge_zone) traced scalars from a (2,) or
-    (3,) params array — computed ONCE here so the kernel wrapper and the
-    XLA twin agree bit-for-bit.
+    (3,) params array — computed ONCE here so every KS integrator agrees
+    bit-for-bit.
 
     r_cap: Kerr-Schild is regular at r_+, but backward-traced rays freeze
     exponentially toward the PAST horizon in any future chart, so capture
@@ -85,7 +83,7 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     applies one full staggered composed step to active rays, with the
     in-loop null-invariant blow-up guard and parking.  open_fn/close_fn
     are the staggered boundary half-A flows (caller masks them by the
-    initially-active set; see the kernel / twin for the masking rules).
+    initially-active set; see integrate_batch_ksc for the masking rules).
 
     disk=(r_in, r_out) swaps masked_step for the disk-crossing variant
     masked_step(comps, ns, hit, hq, hp) -> same: rays whose q1 z row
@@ -195,9 +193,8 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
     # crossing-event reads fold the Kahan deficits (true = s - c): the
     # deficit of a 3,000-step f32 trajectory reaches ~1e-3 in the
     # coordinates, and recording raw accumulator rows was exactly the
-    # round-3 subring event drift (BENCH_r03 max_event_q_delta 8.4e-3).
-    # Folding costs one subtract per read and keeps kernel/twin parity
-    # bit-exact (both run this same code).
+    # source of an 8.4e-3 subring event drift.  Folding costs one
+    # subtract per read.
     if compensated:
         def best(state, i):
             return state[i] - state[16 + i]
@@ -213,9 +210,8 @@ def make_ks_step(subs, mass, a, charge, r_cap, r_max, plunge_zone,
         # plane crossings (ANY radius — image order counts half-orbits,
         # not disk hits; engine/subring.py applies the annulus at
         # shading) and never freeze — the thin disk is transparent.
-        # `cnt` rides the carry as an int32 tile (bool i1 vectors don't
-        # legalize in Mosaic scf.while carries; int32 does — ns proves
-        # it), hq/hp as n_orders nested 4-tuples of tiles.
+        # `cnt` rides the carry as int32, hq/hp as n_orders nested
+        # 4-tuples of (N,) arrays.
         n_orders = int(subrings)
 
         def masked_step_subrings(comps, ns, cnt, hq, hp):
@@ -462,13 +458,11 @@ def ks_status(final_q, a, r_cap, r_max):
 @partial(jax.jit, static_argnames=("steps", "order"))
 def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
                         order=2):
-    """XLA twin of the compensated Pallas KS kernel.
+    """The compensated (Kahan double-float32) Kerr-Schild integrator: the
+    production path for float32 Kerr-Schild renders.
 
-    Runs the EXACT step/guard construction the kernel compiles
-    (make_ks_step, compensated=True) through a lax.while_loop, so CPU
-    tests can validate the compensated Kerr math at full step budgets
-    without interpret-mode cost, and kernel-vs-XLA parity checks share one
-    source of truth.  Same contract as
+    Runs the step/guard construction of make_ks_step (compensated=True)
+    through a lax.while_loop.  Same contract as
     integrate_batch_generic(metric='KerrSchild'): params = (M, a[, Q]),
     returns (final_q, final_p, status, n_steps).
     """
@@ -486,7 +480,7 @@ def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
     ns0 = jnp.zeros(q0s.shape[:-1], dtype=jnp.int32)
 
     act0 = active(state0)
-    if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
+    if steps > 0:  # steps == 0 must be an exact no-op
         opened = open_fn(state0, d0)
         state0 = tuple(jnp.where(act0, o, s) for o, s in zip(opened, state0))
 
@@ -522,17 +516,11 @@ def integrate_batch_ksc(q0s, p0s, steps, delta, params, r_max, omega,
 @partial(jax.jit, static_argnames=("steps", "order", "n_orders"))
 def integrate_batch_subrings_ksc(q0s, p0s, steps, delta, params, r_max,
                                  omega, n_orders=3, order=2):
-    """XLA twin of the compensated Pallas SUBRING kernel.
-
-    Runs the EXACT step/guard/crossing-recorder construction the kernel
-    compiles (make_ks_step, compensated=True, subrings=n_orders) through
-    a lax.while_loop — the subring analog of integrate_batch_ksc, so
-    on-chip kernel-vs-XLA parity compares Mosaic-vs-XLA compilation of
-    identical code (round-3 compared the compensated kernel against the
-    PLAIN engine.subring integrator, and the 8.4e-3 'event drift' it
-    measured was mostly the plain twin's own f32 error).  Same contract
-    as subring.integrate_batch_subrings: returns (final_q, final_p,
-    status, n_steps, hits_q (n_orders, N, 4), hits_p, count).
+    """The compensated SUBRING integrator: the step/guard/crossing-recorder
+    construction of make_ks_step (compensated=True, subrings=n_orders)
+    through a lax.while_loop — the subring analog of integrate_batch_ksc.
+    Same contract as subring.integrate_batch_subrings: returns (final_q,
+    final_p, status, n_steps, hits_q (n_orders, N, 4), hits_p, count).
     """
     dtype = q0s.dtype
     delta = jnp.asarray(delta, dtype)
@@ -554,7 +542,7 @@ def integrate_batch_subrings_ksc(q0s, p0s, steps, delta, params, r_max,
     hp0 = tuple(tuple(zeros for _ in range(4)) for _ in range(n_orders))
 
     act0 = active(state0)
-    if steps > 0:  # steps == 0 must be an exact no-op (matches the kernel)
+    if steps > 0:  # steps == 0 must be an exact no-op
         opened = open_fn(state0, d0)
         state0 = tuple(jnp.where(act0, o, s) for o, s in zip(opened, state0))
 

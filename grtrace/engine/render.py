@@ -1,7 +1,7 @@
 """End-to-end curved-ray render pipeline: camera -> integrate -> classify ->
 composite, device-resident.
 
-TPU-native counterpart of reference run_manual_simulation
+Array-program counterpart of reference run_manual_simulation
 (reference: simulation/raytracing.py:16-314).  The reference's structure —
 three O(H*W) host Python loops around one CUDA kernel launch — becomes two
 jitted array programs (initial conditions + integration, then classification

@@ -30,20 +30,20 @@ from ..physics.camera import camera_rays_cartesian, camera_rays_unfolded
 from ..physics.coords import cartesian_to_spherical
 from ..physics.spacetime import COORDS, METRICS, horizon_radius
 from . import classify as _classify
-from .integrate_generic import integrate_batch_generic
+from .integrate_generic import integrate_batch_chart
 
 
 @partial(jax.jit,
          static_argnames=("height", "width", "steps", "flip_theta",
                           "flip_phi", "has_background", "dtype", "metric",
-                          "order", "backend"))
+                          "order"))
 def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
                           steps, delta, omega,
                           patch_center_theta, patch_center_phi,
                           patch_size_theta, patch_size_phi,
                           *, height, width, flip_theta=False, flip_phi=False,
                           has_background=True, dtype=jnp.float32,
-                          metric="Kerr", order=2, backend="xla", charge=0.0):
+                          metric="Kerr", order=2, charge=0.0):
     """One compiled device program: camera -> integrate -> classify -> RGB."""
     g_inv_fn = METRICS[metric]
     cartesian = COORDS[metric] == "cartesian"
@@ -68,21 +68,9 @@ def render_pixels_generic(bg_array, obs_x, fov, mass, spin, boundary_radius,
         beta_fold = None
 
     n = height * width
-    if backend == "pallas" and metric == "KerrSchild":
-        from .integrate_pallas_ks import integrate_batch_pallas_ks
-        # float32 production renders get the Kahan-compensated kernel: it
-        # pins the high-spin shadow boundary at sub-pixel vs the f64
-        # oracle where the plain f32 flows drift ~3 px at the prograde
-        # edge (see physics.kerr_schild compensated section); float64
-        # keeps the plain kernel (already at roundoff).
-        final_q, final_p, status, n_steps = integrate_batch_pallas_ks(
-            q0.reshape(n, 4), p0.reshape(n, 4), steps, delta, params,
-            boundary_radius, omega, order=order,
-            compensated=dtype == jnp.float32)
-    else:
-        final_q, final_p, status, n_steps = integrate_batch_generic(
-            q0.reshape(n, 4), p0.reshape(n, 4), steps, delta, params,
-            boundary_radius, omega, order=order, metric=metric)
+    final_q, final_p, status, n_steps = integrate_batch_chart(
+        q0.reshape(n, 4), p0.reshape(n, 4), steps, delta, params,
+        boundary_radius, omega, order=order, metric=metric, dtype=dtype)
     final_q = final_q.reshape(height, width, 4)
 
     if cartesian:
@@ -261,13 +249,6 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
     bg_dev = (jnp.asarray(bg_array, dtype=jnp.uint8) if has_bg
               else jnp.zeros((1, 1, 3), dtype=jnp.uint8))
 
-    # The Kerr-Schild chart has a dedicated Pallas kernel (7x the XLA
-    # engine at kernel level, 11x end-to-end on a v5e); Boyer-Lindquist
-    # and any future spherical-chart metric stay on the autodiff path.
-    from .integrate import resolve_backend
-    backend = (resolve_backend(integ.backend) if metric == "KerrSchild"
-               else "xla")
-
     with metrics.stage("device_pipeline"):
         out = render_pixels_generic(
             bg_dev,
@@ -286,8 +267,7 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
             height=h, width=w,
             flip_theta=scene.patch.flip_theta, flip_phi=scene.patch.flip_phi,
             has_background=has_bg, dtype=dtype, metric=metric,
-            order=integ.order, backend=backend,
-            charge=jnp.asarray(charge, dtype))
+            order=integ.order, charge=jnp.asarray(charge, dtype))
         if aa_samples:
             from .aa import refine_edges_generic
             out["image"], out["aa_mask"] = refine_edges_generic(
@@ -306,7 +286,7 @@ def render_generic(scene, *, spin=None, metric="Kerr", bg_array=None,
                 jnp.asarray(scene.patch.size_theta, dtype),
                 jnp.asarray(scene.patch.size_phi, dtype),
                 height=h, width=w, samples=int(aa_samples),
-                metric=metric, order=integ.order, backend=backend,
+                metric=metric, order=integ.order,
                 flip_theta=scene.patch.flip_theta,
                 flip_phi=scene.patch.flip_phi,
                 has_background=has_bg, dtype=dtype)

@@ -176,11 +176,10 @@ def shadow_metrics(psis, rho_px):
 
 
 def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
-                     order=4, backend="auto", dtype=None, rounds=3,
-                     metric="KerrSchild"):
+                     order=4, dtype=None, rounds=3, metric="KerrSchild"):
     """(psis, rho_px, bracket): the REAL integrator's shadow boundary at
-    n_psi azimuths (the production compensated f32 Kerr-Schild path on
-    TPU, its XLA twin elsewhere) — engine.validate.kerr_shadow_errors
+    n_psi azimuths (the production compensated Kerr-Schild path,
+    integrate_ks.integrate_batch_ksc) — engine.validate.kerr_shadow_errors
     generalized to an arbitrary azimuth fan.  For the rotating regular
     families (`metric`, with the family parameter in `charge`'s slot)
     the fan rides the generic autodiff engine."""
@@ -188,14 +187,13 @@ def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
 
     from ..physics.camera import cartesian_ics_from_pixels
     from ..physics.spacetime import METRICS
-    from .integrate import STATUS_ESCAPED, resolve_backend
+    from .integrate import STATUS_ESCAPED
     from .validate import BOUNDARY, _pixel_positions
 
     if dtype is None:
         dtype = jnp.float32
     psis = np.linspace(0.0, 2.0 * np.pi, n_psi, endpoint=False)
     params = jnp.asarray([1.0, spin, charge], dtype)
-    backend = resolve_backend(backend)
     g_inv_fn = METRICS[metric]
 
     def escape(rhos):
@@ -218,18 +216,12 @@ def numeric_boundary(spin, charge=0.0, n_psi=16, steps=8_000, delta=0.02,
                 q0, p0, steps, jnp.asarray(delta, dtype), params,
                 jnp.asarray(BOUNDARY, dtype), jnp.asarray(1.0, dtype),
                 order=order, metric=metric)
-        elif backend == "xla":
+        else:
             from .integrate_ks import integrate_batch_ksc
             _, _, status, _ = integrate_batch_ksc(
                 q0, p0, steps, jnp.asarray(delta, dtype), params,
                 jnp.asarray(BOUNDARY, dtype), jnp.asarray(1.0, dtype),
                 order=order)
-        else:
-            from .integrate_pallas_ks import integrate_batch_pallas_ks
-            _, _, status, _ = integrate_batch_pallas_ks(
-                q0, p0, steps, jnp.asarray(delta, dtype), params,
-                jnp.asarray(BOUNDARY, dtype), jnp.asarray(1.0, dtype),
-                order=order, compensated=dtype == jnp.float32)
         return np.asarray(status).reshape(rhos.shape) == STATUS_ESCAPED
 
     rho, bracket = bisect_boundary(escape, 6.0, 40.0, rounds=rounds, k=9,

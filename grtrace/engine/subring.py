@@ -18,7 +18,7 @@ per-order redshift maps, per-order images, subring delay maps, flux-ratio
 Lyapunov estimates — is elementwise algebra on the recorded crossing
 events, fused into the same XLA program.
 
-TPU-native design notes:
+Design notes:
   * the slot store is a dense (N_ORDERS, N, 4) carry updated with a
     one-hot `where` (no scatters) — N_ORDERS is a static compile-time
     constant, so the loop body stays a fixed-shape fused program;
@@ -211,7 +211,8 @@ def _trace_shade_subrings(q0f, p0f, bg_array, params, r_obs, r_obs_bl,
                           profile, flip_theta, flip_phi, has_background,
                           omega_obs=None):
     """The per-ray subring chain on FLAT (N, 4) phase points: transparent-
-    disk integration (XLA engine or the tuned Pallas subring kernel) ->
+    disk integration (the autodiff engine, or with backend='pallas' the
+    Kahan-compensated hand-derived twin) ->
     per-order shade -> endpoint classify -> additive thin-disk composite.
     Shared by the full-frame program (render_pixels_subrings) and the
     adaptive edge-refinement sub-ray pass (aa.refine_subrings) so a
@@ -221,12 +222,11 @@ def _trace_shade_subrings(q0f, p0f, bg_array, params, r_obs, r_obs_bl,
 
     n = q0f.shape[0]
     if backend == "pallas":
-        from .integrate_pallas_ks import integrate_batch_pallas_subrings
+        from .integrate_ks import integrate_batch_subrings_ksc
         final_q, final_p, status, n_steps, hq, hp, count = \
-            integrate_batch_pallas_subrings(
+            integrate_batch_subrings_ksc(
                 q0f, p0f, steps, delta, params, boundary_radius, omega,
-                n_orders=n_orders, order=order,
-                compensated=dtype == jnp.float32)
+                n_orders=n_orders, order=order)
     else:
         final_q, final_p, status, n_steps, hq, hp, count = \
             integrate_batch_subrings(q0f, p0f, steps, delta, params,
@@ -298,10 +298,10 @@ def render_pixels_subrings(bg_array, obs_pos, fov, mass, spin, charge,
     (redshift, intensity, emission radius, BL arrival time) comes back as
     an (n_orders, H, W) stack.
 
-    backend='pallas' runs the tuned KS kernel's subring twin
-    (integrate_pallas_ks.integrate_batch_pallas_subrings;
-    Kahan-compensated in float32 like the production disk path); 'xla'
-    the autodiff while_loop engine (integrate_batch_subrings).
+    backend='pallas' (what 'auto' resolves to on a GPU) runs the
+    Kahan-compensated hand-derived flows
+    (integrate_ks.integrate_batch_subrings_ksc); 'xla' the autodiff
+    while_loop engine (integrate_batch_subrings).
     """
     from ..physics.camera import cartesian_ics_from_pixels, pixel_grid_lookat
     from . import classify as _classify

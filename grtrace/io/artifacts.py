@@ -17,6 +17,8 @@ Schema parity targets (judge-checkable):
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -75,7 +77,13 @@ def load_background(path: str, size: Optional[tuple] = None) -> np.ndarray:
     if textures.is_procedural(path):
         hw = (size[1], size[0]) if size is not None else None
         return textures.from_spec(path, size=hw)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"loading the image file {path!r} needs Pillow; procedural "
+            "backgrounds ('procedural:<name>') need nothing beyond numpy"
+        ) from e
     img = Image.open(resolve_background(path)).convert("RGB")
     if size is not None:
         img = img.resize(size, Image.LANCZOS)
@@ -91,28 +99,64 @@ def background_available(spec) -> bool:
         resolve_background(spec))
 
 
+def png_bytes(img: np.ndarray) -> bytes:
+    """Encode an (H, W), (H, W, 3) or (H, W, 4) uint8 image as PNG with the
+    standard library alone (filter type 0 on every row, zlib level 6)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    color = {2: 0, 3: {1: 0, 3: 2, 4: 6}.get(img.shape[-1])}[img.ndim]
+    if color is None:
+        raise ValueError(f"unsupported image shape {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def save_image(img: np.ndarray, path: str) -> None:
-    from PIL import Image
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(np.asarray(img, dtype=np.uint8)).save(path)
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
 
 
-def photon_dataframe(result):
-    """RenderResult -> photon_data DataFrame (raytracing.py:275-280)."""
-    import pandas as pd
+def write_csv(path, columns: dict) -> None:
+    """{name: (N,) array} -> CSV with a header row.  Integers print as
+    integers, floats as %.17g (the native writer's format, exact round
+    trip), anything else as text."""
+    cells = []
+    for v in columns.values():
+        v = np.asarray(v)
+        if v.dtype.kind in "iub":
+            cells.append(v.astype(np.int64).astype(str))
+        elif v.dtype.kind == "f":
+            cells.append(np.char.mod("%.17g", v.astype(np.float64)))
+        else:
+            cells.append(v.astype(str))
+    with open(path, "w") as f:
+        f.write(",".join(columns) + "\n")
+        f.writelines(",".join(row) + "\n" for row in zip(*cells))
+
+
+def photon_columns(result) -> dict:
+    """RenderResult -> photon_data columns (raytracing.py:275-280)."""
     h, w = result.cls.shape
     ii, jj = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    flat = lambda a: np.asarray(a).reshape(h * w, -1)
-    cls = result.cls.reshape(-1)
-    heading = flat(result.heading)
-    p0 = flat(result.p0)
-    return pd.DataFrame({
+    heading = np.asarray(result.heading).reshape(h * w, -1)
+    p0 = np.asarray(result.p0).reshape(h * w, -1)
+    return {
         "i": ii.reshape(-1),
         "j": jj.reshape(-1),
         "final_r": np.asarray(result.final_q)[..., 1].reshape(-1),
         "final_th": result.final_th.reshape(-1),
         "final_ph": result.final_ph.reshape(-1),
-        "collision": [COLLISION_NAMES[c] for c in cls],
+        "collision": np.asarray(COLLISION_NAMES)[result.cls.reshape(-1)],
         "h_r": heading[:, 0],
         "h_theta": heading[:, 1],
         "h_phi": heading[:, 2],
@@ -121,11 +165,11 @@ def photon_dataframe(result):
         "p0_th": p0[:, 2],
         "p0_ph": p0[:, 3],
         "alpha0": result.alpha0.reshape(-1),
-    })
+    }
 
 
 def save_photon_data(result, path="photon_data.csv"):
-    """Write photon_data.csv — native C++ serializer with pandas fallback
+    """Write photon_data.csv — native C++ serializer with a numpy fallback
     (grtrace.native: ~20x faster at 400x400)."""
     from .. import native
     h, w = result.cls.shape
@@ -139,34 +183,35 @@ def save_photon_data(result, path="photon_data.csv"):
         np.asarray(result.p0).reshape(-1, 4),
         result.alpha0.reshape(-1))
     if not ok:
-        photon_dataframe(result).to_csv(path, index=False)
+        write_csv(path, photon_columns(result))
 
 
-def sampled_rays_dataframe(result):
-    """Sampled trajectories -> sampled_rays DataFrame (raytracing.py:288-298).
+def sampled_rays_columns(result) -> dict:
+    """Sampled trajectories -> sampled_rays columns (raytracing.py:288-298).
 
     Zero-filled post-exit rows are kept, matching the reference buffer
     semantics (consumers filter all-zero points, main.py:107-114).
     """
-    import pandas as pd
-    rows = []
     heading = np.asarray(result.heading)
-    for ridx, traj in enumerate(result.sampled_trajectories):
-        i, j = result.sampled_indices[ridx]
-        h_r, h_th, h_ph = heading[i, j]
-        r = np.linalg.norm(traj, axis=-1)
-        for pidx in range(traj.shape[0]):
-            rows.append({
-                "ray_id": ridx, "point_idx": pidx,
-                "x": traj[pidx, 0], "y": traj[pidx, 1], "z": traj[pidx, 2],
-                "r": r[pidx],
-                "h_r": h_r, "h_theta": h_th, "h_phi": h_ph,
-            })
-    return pd.DataFrame(rows)
+    trajs = [np.asarray(t) for t in result.sampled_trajectories]
+    n_pts = [t.shape[0] for t in trajs]
+    xyz = (np.concatenate(trajs) if trajs else np.zeros((0, 3)))
+    hsel = np.asarray([heading[i, j] for (i, j) in result.sampled_indices]
+                      ).reshape(-1, 3)
+    rep = np.repeat(np.arange(len(trajs)), n_pts)
+    return {
+        "ray_id": rep,
+        "point_idx": np.concatenate([np.arange(n) for n in n_pts]
+                                    ) if trajs else rep,
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "r": np.linalg.norm(xyz, axis=-1),
+        "h_r": hsel[rep, 0], "h_theta": hsel[rep, 1], "h_phi": hsel[rep, 2],
+    }
 
 
 def save_sampled_rays(result, path="sampled_rays.csv"):
-    """Write sampled_rays.csv — native C++ serializer with pandas fallback."""
+    """Write sampled_rays.csv — native C++ serializer with a numpy
+    fallback."""
     from .. import native
     trajs = result.sampled_trajectories
     if trajs and all(t.shape == trajs[0].shape for t in trajs):
@@ -174,17 +219,16 @@ def save_sampled_rays(result, path="sampled_rays.csv"):
         hsel = np.stack([heading[i, j] for (i, j) in result.sampled_indices])
         if native.write_sampled_csv(str(path), np.stack(trajs), hsel):
             return
-    sampled_rays_dataframe(result).to_csv(path, index=False)
+    write_csv(path, sampled_rays_columns(result))
 
 
 def save_single_ray_csv(traj, path="single_ray_test.csv"):
     """(steps, 4) trajectory -> CSV with t,r,theta,phi; angles in degrees
     (single_ray_cuda_test.py:314-321)."""
-    import pandas as pd
-    df = pd.DataFrame(np.asarray(traj), columns=["t", "r", "theta", "phi"])
-    df["theta"] = np.degrees(df["theta"])
-    df["phi"] = np.degrees(df["phi"])
-    df.to_csv(path, index=False)
+    traj = np.asarray(traj, dtype=np.float64)
+    write_csv(path, {"t": traj[:, 0], "r": traj[:, 1],
+                     "theta": np.degrees(traj[:, 2]),
+                     "phi": np.degrees(traj[:, 3])})
 
 
 def print_summary(counts: dict) -> None:

@@ -12,7 +12,7 @@ invariants to one compressed ``.npz``, so model exploration (fitting an
 iron-line profile, scanning color temperatures, animating a flare) runs
 at millisecond fused-shading cost with zero geodesic work.
 
-TPU-native framing: the expensive compiled trace program runs once; every
+Framing: the expensive compiled trace program runs once; every
 reshade is a small elementwise XLA program over the saved arrays — the
 same split engine/hotspot.py exploits within a single movie, made durable
 across processes.  This generalizes the astrophysics notion of a disk

@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The TPU compute path is Pallas/XLA; the host runtime around it (artifact
+The compute path is JAX on the device; the host runtime around it (artifact
 serialization here) is C++ — the analog of the reference's native layer
 (whose only native code is its CUDA kernels, SURVEY.md section 2.1).
 
@@ -79,7 +79,7 @@ def _ptr(arr, ctype):
 def write_photon_csv(path, h, w, final_r, final_th, final_ph, cls, heading,
                      p0, alpha0) -> bool:
     """Native photon_data.csv writer. Returns False if native path is
-    unavailable (caller falls back to pandas)."""
+    unavailable (caller falls back to the numpy writer)."""
     import numpy as np
     lib = load()
     if lib is None:

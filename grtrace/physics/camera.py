@@ -25,9 +25,17 @@ rendered images match the reference bit-for-bit in float64.
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from .coords import cartesian_to_spherical, rotate_x
 from .nullcond import null_p_t
+
+
+def _dot(a, b):
+    """Exact-f32 contraction: a plain float32 `@` may run in TF32 (about
+    three significant digits) on a GPU, which alone would break the 1e-5
+    escape-direction contract before the integrator runs a step."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 
 def pixel_grid(obs_pos, fov, height, width, dtype=jnp.float32):
@@ -327,9 +335,9 @@ def unfolded_ics_from_pixels(obs, pix, *, params, g_inv_fn):
     thhat = jnp.stack([ct * cp, ct * sp, -st])
     phhat = jnp.stack([-sp, cp, jnp.zeros_like(sp)])
 
-    n_r = ray @ rhat
-    n_th = ray @ thhat
-    n_ph = ray @ phhat
+    n_r = _dot(ray, rhat)
+    n_th = _dot(ray, thhat)
+    n_ph = _dot(ray, phhat)
 
     mass = jnp.asarray(params, dtype)[0]
     f_r = jnp.sqrt(1.0 - 2.0 * mass / r_obs)
@@ -402,7 +410,7 @@ def cartesian_ics_from_pixels(obs, pix, *, params, g_inv_fn):
     r_obs = jnp.linalg.norm(obs)
     rhat = obs / r_obs
     f_r = jnp.sqrt(1.0 - 2.0 * params_arr[0] / r_obs)
-    n_r = ray @ rhat
+    n_r = _dot(ray, rhat)
     p_sp = ray + (f_r - 1.0) * n_r[..., None] * rhat
 
     flat_p = p_sp.reshape(-1, 3)
@@ -412,7 +420,7 @@ def cartesian_ics_from_pixels(obs, pix, *, params, g_inv_fn):
     p0 = jnp.concatenate([p_t.reshape(shape)[..., None], p_sp], axis=-1)
 
     axis = -obs / jnp.linalg.norm(obs)
-    alpha0 = jnp.arccos(jnp.clip(ray @ axis, -1.0, 1.0))
+    alpha0 = jnp.arccos(jnp.clip(_dot(ray, axis), -1.0, 1.0))
     return q0, p0, alpha0
 
 
@@ -455,7 +463,7 @@ def boosted_ics_from_pixels(obs, pix, *, params, g_inv_fn, omega_cam):
         [jnp.zeros((1,), dtype), obs]), params_arr))
 
     def dot(a, b):
-        return a @ g @ b
+        return _dot(_dot(a, g), b)
 
     v0 = jnp.concatenate([jnp.ones((1,), dtype),
                           omega_cam * jnp.stack([-obs[1], obs[0],
@@ -484,15 +492,15 @@ def boosted_ics_from_pixels(obs, pix, *, params, g_inv_fn, omega_cam):
 
     # image-plane coefficients of each pixel in the look-at frame
     rel = pix - obs
-    c_ax = rel @ axis
-    c_r = rel @ right
-    c_up = rel @ up
+    c_ax = _dot(rel, axis)
+    c_r = _dot(rel, right)
+    c_up = _dot(rel, up)
     c = jnp.stack([c_ax, c_r, c_up], axis=-1)
     c = c / jnp.linalg.norm(c, axis=-1, keepdims=True)
 
     d = (c[..., 0:1] * e1 + c[..., 1:2] * e2 + c[..., 2:3] * e3)
     p_up = d - e0                                   # contravariant, null
-    p0 = p_up @ g.T                                 # lower: p_mu = g_mn p^n
+    p0 = _dot(p_up, g.T)                             # lower: p_mu = g_mn p^n
 
     alpha0 = jnp.arccos(jnp.clip(c[..., 0], -1.0, 1.0))
     return q0, p0, alpha0

@@ -1,6 +1,6 @@
 """Coordinate conversions (spherical <-> Cartesian) and the x-axis rotation trick.
 
-TPU-native replacement for the EinsteinPy coordinate helpers the reference
+Array-program replacement for the EinsteinPy coordinate helpers the reference
 imports (`spherical_to_cartesian_fast` / `cartesian_to_spherical_fast`,
 reference: simulation/utils.py:3).  Everything here is pure `jnp`, fully
 batched, and works under `jit` / `vmap` / `shard_map`.

@@ -2,15 +2,15 @@
 
 Phase-space-doubled Hamiltonian integrator (Christian & Chan 2021,
 arXiv:2010.02237) specialized to the analytic Schwarzschild metric — the
-TPU-native counterpart of the reference's Numba-CUDA device functions
+array-program counterpart of the reference's Numba-CUDA device functions
 (reference: simulation/cuda_geodesic.py:476-575).
 
-Design notes (TPU-first, not a translation):
+Design notes:
   * State is a tuple of 16 component arrays (4 components x {q1, p1, q2, p2})
     instead of per-thread 4-vectors.  Each component array can be any shape —
-    (N,) in the XLA `vmap`-free batched path, or (1, TILE) lane-major blocks
-    inside the Pallas kernel — so the *same* flow code serves both backends
-    and the float64 oracle.
+    (N,) in the XLA `vmap`-free batched path, or one (BLOCK,) slice per
+    program inside the Pallas GPU kernel — so the *same* flow code serves
+    both backends and the float64 oracle.
   * Because the metric is diagonal, static and axisymmetric, dH/dq is non-zero
     only for the r and theta slots; p_t and p_phi are exact invariants of
     flows A and B and are left untouched (the reference computes and subtracts
@@ -154,7 +154,7 @@ def fantasy_step_ord2(state, delta, rs, cos_w, sin_w):
 
 def _flow_a_fused(state, dt, rs):
     """flow A with shared reciprocals/trig — identical formulas to _flow_a
-    with subexpressions factored for the VPU: 3 divisions + 1 sin + 1 cos
+    with subexpressions factored: 3 divisions + 1 sin + 1 cos
     per flow instead of ~10 divisions (the reference recomputes every metric
     entry from scratch per flow, cuda_geodesic.py:432-474)."""
     (q1t, q1r, q1th, q1ph,
@@ -352,7 +352,7 @@ def fantasy_step_ord2_eq(state, delta, rs, cos_w, sin_w):
 # The dynamics read s, which now stays within ~1 ulp of the true sum instead
 # of drifting, so the remaining error is the per-step increment rounding
 # (~eps * |inc|), which random-walks to ~1e-8 — two orders of magnitude
-# inside the target.  Cost: 4 extra VPU ops per accumulated component
+# inside the target.  Cost: 4 extra ops per accumulated component
 # (~1.5x the flow flops), no extra divisions, no transcendentals.
 #
 # The mixing rotation is reformulated with one_minus_cos = 2*sin^2(omega*d)
@@ -363,8 +363,8 @@ def fantasy_step_ord2_eq(state, delta, rs, cos_w, sin_w):
 # 0.5*(q_sum + q_dif*cos + ...) at |q| magnitude never happens.
 #
 # Compensated state layout: a 24-tuple — the 12-row equatorial layout
-# followed by its 12 deficit rows, so the Pallas tile machinery (packing,
-# masking, early exit) is shared with the uncompensated kernels.
+# followed by its 12 deficit rows, so the kernel's row machinery (packing,
+# masking, early exit) is shared with the uncompensated layouts.
 #
 # EVERY row's compensation is load-bearing — including the t rows, whose
 # coordinate value never reaches any output.  The copies' q_t difference
@@ -500,7 +500,7 @@ def fantasy_step_ord2_eqc(state, delta, rs, omc_w, sin_w):
 #                with bridge_j = (d_j + d_{(j+1) mod n})/2
 #     closing:   s_K = A(-d0/2)(w_K)                     (once, masked)
 #
-# which runs ONE A flow per substep instead of two — ~13% fewer VPU ops for
+# which runs ONE A flow per substep instead of two — ~13% fewer ops for
 # the equatorial layouts.  Every interior state coincides with the plain
 # composition in exact arithmetic, and because A never writes q1, the
 # capture/escape/guard tests (all functions of q1_r) see the same values at

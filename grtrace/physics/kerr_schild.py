@@ -3,9 +3,9 @@
 Component-tuple twin of physics.hamiltonian (Schwarzschild) for the
 Kerr-Schild chart of physics.spacetime.kerr_schild_g_inv: the same flow
 algebra the generic autodiff engine derives with `jax.grad`, here written
-out by hand as pure elementwise array ops so the hot loop can run inside a
-lane-major Pallas TPU kernel (autodiff-built per-ray flows would force a
-(N, 4, 4) metric layout; these run on sixteen (8, 128) component registers).
+out by hand as pure elementwise array ops, one (N,) array per component
+(autodiff-built per-ray flows force a (N, 4, 4) metric layout) — the form a
+one-ray-per-thread GPU kernel can take over unchanged.
 
 The reference has no Kerr support at all — its GPU kernel hand-codes
 Schwarzschild only (reference: simulation/cuda_geodesic.py:432-474); the
@@ -206,8 +206,8 @@ def close_ks(state, d0, mass, a, charge=0.0):
 # three Cartesian coordinates — so ALL 16 rows are compensated.
 #
 # Compensated state layout: a 32-tuple — the 16-row layout followed by its
-# 16 deficit rows (deficit of row i at 16 + i), so the Pallas tile
-# machinery (packing, masking, early exit) is shared with the plain kernel.
+# 16 deficit rows (deficit of row i at 16 + i), so the row machinery
+# (packing, masking, early exit) is shared with the plain layout.
 #
 # The geometry (_kick_drift) is evaluated on the raw accumulator rows s,
 # not the best estimate s - c: the deficit is <= 1 ulp of s, far below the

@@ -2,7 +2,7 @@
 
 The reference fills dense 4x4 matrices on every integrator step
 (reference: simulation/cuda_geodesic.py:432-474).  The Schwarzschild metric is
-diagonal, static and axisymmetric, so the TPU-native design collapses the
+diagonal, static and axisymmetric, so this design collapses the
 matrix algebra to four scalars per point and only two non-trivial derivative
 directions (r and theta).  All functions are pure, elementwise `jnp` programs
 that batch over arbitrary leading dimensions and are reused verbatim by the

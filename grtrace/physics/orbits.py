@@ -66,9 +66,8 @@ def _invert_bl_metric(g_inv):
 
     BL metrics of the Kerr-Newman family couple only (t, phi); (r, theta)
     are diagonal.  The block inverse — reciprocal diagonals plus the 2x2
-    (t, phi) inverse — avoids jnp.linalg.inv's LU path, which the TPU
-    backend does not implement for float64 (and which is slower than the
-    closed form for 4x4 anyway).
+    (t, phi) inverse — avoids jnp.linalg.inv's LU path, which is slower
+    than the closed form for 4x4.
     """
     det2 = g_inv[0, 0] * g_inv[3, 3] - g_inv[0, 3] * g_inv[3, 0]
     z = jnp.zeros_like(det2)

@@ -13,7 +13,7 @@ momentum k (Walker & Penrose 1970).  That turns polarization transport —
 an extra ODE per ray in a naive design — into pure algebra: evaluate
 kappa once at the emission event, reconstruct the polarization direction
 at the camera from the conserved value.  No per-step state, no extra
-kernel rows, zero cost in the integration loop: the TPU-native way to
+kernel rows, zero cost in the integration loop: the array-program way to
 polarize a ray tracer.
 
 The rays themselves live on the Cartesian Kerr-Schild chart (the

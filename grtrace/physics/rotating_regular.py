@@ -22,7 +22,7 @@ of r^4 - (rho^2 - a^2) r^2 = a^2 z^2 — the mass function never enters
 the chart).  At a = 0 these reduce exactly to the static families; at
 g = l = 0 exactly to Kerr.
 
-TPU-first consequence: because the deformation lives entirely inside the
+Consequence: because the deformation lives entirely inside the
 scalar H, the rotating regular families inherit the full Cartesian
 Kerr-Schild machinery — horizon-regular (no 1/Delta stiffness), no polar
 axis, the same camera (camera_rays_cartesian), the same guards (the

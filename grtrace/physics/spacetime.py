@@ -7,7 +7,7 @@ tests/einsteinpy-geodesic-test/main.py:145-155 passes `metric_params=(a,)`).
 The reference GPU path hand-codes Schwarzschild only
 (simulation/cuda_geodesic.py:432-474).
 
-This module is the TPU-native generalization: a spacetime is just a pure
+This module is the array-program generalization: a spacetime is just a pure
 function ``g_inv(q, params) -> (4, 4)`` and the FANTASY flow kicks/drifts are
 obtained with `jax.grad` of the scalar Hamiltonian — exact derivatives of
 whatever metric is plugged in, no hand-derived formulas and no finite
@@ -104,11 +104,10 @@ def kerr_schild_g_inv(q, params):
     - 2H l^mu l^nu with H = M r^3 / (r^4 + a^2 z^2),
     l_mu = (1, (rx+ay)/(r^2+a^2), (ry-ax)/(r^2+a^2), z/r), l^mu = eta l.
 
-    Why this chart exists here (TPU-first design, not in the reference or
-    EinsteinPy): it is regular at the horizon (no 1/Delta blow-up — the
+    Why this chart exists here (not in the reference or EinsteinPy): it is regular at the horizon (no 1/Delta blow-up — the
     stiff kicks that force the Boyer-Lindquist blow-up guard simply don't
     exist) and Cartesian (no polar 1/sin(theta) singularity), so fixed-step
-    float32 integration — what the chip natively runs — stays
+    float32 integration — the production precision — stays
     well-conditioned everywhere outside the ring singularity.
 
     Capture semantics: the *backward*-traced camera ray that "came from the

@@ -41,12 +41,12 @@ from jax.sharding import PartitionSpec as P
 
 @partial(jax.jit,
          static_argnames=("mesh", "height", "width", "steps", "order",
-                          "backend", "dtype", "prograde", "n_bins",
+                          "dtype", "prograde", "n_bins",
                           "emissivity", "g_lo", "g_hi"))
 def line_profile_grid_sharded(mesh, spins, elevations, obs_distance, fov,
                               mass, charge, boundary_radius, steps, delta,
                               omega, r_out, *, height, width, order=2,
-                              backend="xla", dtype=jnp.float32,
+                              dtype=jnp.float32,
                               prograde=True, n_bins=96, emissivity=(3.0,),
                               g_lo=0.1, g_hi=1.6):
     """One compiled program: (F,) spins x (F,) elevations -> (F, Q, B)
@@ -103,17 +103,9 @@ def line_profile_grid_sharded(mesh, spins, elevations, obs_distance, fov,
                                                  dtype=dtype)
         q0, p0, _ = cartesian_ics_from_pixels(obs_pos, pix, params=params,
                                               g_inv_fn=g_inv_fn)
-        if backend == "pallas":
-            from ..engine.integrate_pallas_ks import \
-                integrate_batch_pallas_disk
-            _, _, status, _, hit_q, hit_p = integrate_batch_pallas_disk(
-                q0, p0, steps, delta, params, boundary_radius, omega,
-                r_in, r_out, order=order,
-                compensated=dtype == jnp.float32)
-        else:
-            _, _, status, _, hit_q, hit_p = integrate_batch_disk(
-                q0, p0, steps, delta, params, boundary_radius, omega,
-                r_in, r_out, order=order)
+        _, _, status, _, hit_q, hit_p = integrate_batch_disk(
+            q0, p0, steps, delta, params, boundary_radius, omega,
+            r_in, r_out, order=order)
 
         # redshift algebra as engine.disk.shade_disk (Killing constants)
         x, y = hit_q[:, 1], hit_q[:, 2]

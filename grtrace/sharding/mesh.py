@@ -1,12 +1,12 @@
-"""Multi-chip sharding: ray tiles over ICI, frames over a second mesh axis.
+"""Multi-device sharding: rays over one mesh axis, frames over a second.
 
 The reference is strictly single-process / single-GPU (SURVEY.md section 2.2);
-this module is the scale-out story the TPU build adds.  Rays are embarrassingly
+this module is the scale-out story this build adds.  Rays are embarrassingly
 parallel, so the design is pure SPMD with `shard_map` over a
 `jax.sharding.Mesh`:
 
   * axis 'rays'   — the flattened pixel batch of one frame, sharded across
-                    chips in a slice (ICI).  Each device computes the camera
+                    devices (NVLink on one host).  Each device computes the camera
                     initial conditions for *its own* index slice (no
                     replicated (H, W) grid), integrates, classifies and
                     composites its pixels.  The only communication is the
@@ -14,8 +14,8 @@ parallel, so the design is pure SPMD with `shard_map` over a
                     image — zero per-step collectives, which is
                     speed-of-light for this workload.
   * axis 'frames' — independent frames of a camera-orbit animation / batch
-                    job, sharded across slices (DCN-friendly: frames never
-                    talk to each other).
+                    job (frames never talk to each other, so this axis can
+                    span hosts).
 
 Camera orbits exploit spherical symmetry: orbiting the observer in the
 equatorial plane is identical to holding the camera fixed and rotating the
@@ -141,15 +141,14 @@ def render_frames_sharded(mesh, bg_array, obs_x, fov, mass, boundary_radius,
 @partial(jax.jit,
          static_argnames=("mesh", "height", "width", "steps", "flip_theta",
                           "flip_phi", "has_background", "dtype", "metric",
-                          "order", "backend"))
+                          "order"))
 def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
                         boundary_radius, steps, delta, omega,
                         patch_center_theta, patch_center_phi,
                         patch_size_theta, patch_size_phi,
                         *, height, width, flip_theta=False, flip_phi=False,
                         has_background=True, dtype=jnp.float32,
-                        metric="KerrSchild", order=2, backend="xla",
-                        charge=0.0):
+                        metric="KerrSchild", order=2, charge=0.0):
     """Kerr(-Newman) frames over the ('frames', 'rays') mesh — the
     generic-metric twin of render_frames_sharded.
 
@@ -157,11 +156,12 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
     trick still holds for *equatorial* orbits about the spin axis (the
     scene is invariant under rotations about +z), which is exactly the
     orbit family orbit_frames generates.  Uses the Cartesian Kerr-Schild
-    chart end-to-end: unfolded camera, generic autodiff integrator (or the
-    KS Pallas kernel with backend='pallas'), status-pinned classification.
+    chart end-to-end: unfolded camera, the single-device production
+    integrator (integrate_generic.integrate_batch_chart: compensated
+    flows in float32), status-pinned classification.
     """
     from ..engine.integrate import STATUS_CAPTURED
-    from ..engine.integrate_generic import integrate_batch_generic
+    from ..engine.integrate_generic import integrate_batch_chart
     from ..physics.camera import (cartesian_ics_from_pixels,
                                   pixel_positions_for_indices)
     from ..physics.coords import cartesian_to_spherical
@@ -171,9 +171,6 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
     assert COORDS[metric] == "cartesian", \
         "sharded Kerr-family frames use the Cartesian chart (KerrSchild " \
         "or a rotating regular family)"
-    assert backend == "xla" or metric == "KerrSchild", \
-        "the Pallas kernel hand-inlines the Kerr-Newman H; mass-function " \
-        "metrics ride the autodiff XLA engine"
     g_inv_fn = METRICS[metric]
     n = height * width
     n_ray_shards = mesh.shape["rays"]
@@ -201,17 +198,9 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
                                           flat_idx, dtype=dtype)
         q0, p0, alpha0 = cartesian_ics_from_pixels(
             obs_pos, pix, params=params, g_inv_fn=g_inv_fn)
-        if backend == "pallas":
-            from ..engine.integrate_pallas_ks import integrate_batch_pallas_ks
-            # f32 -> Kahan-compensated kernel, matching the single-chip
-            # production path (engine.render_generic)
-            final_q, final_p, status, n_steps = integrate_batch_pallas_ks(
-                q0, p0, steps, delta, params, boundary_radius, omega,
-                order=order, compensated=dtype == jnp.float32)
-        else:
-            final_q, final_p, status, n_steps = integrate_batch_generic(
-                q0, p0, steps, delta, params, boundary_radius, omega,
-                order=order, metric=metric)
+        final_q, final_p, status, n_steps = integrate_batch_chart(
+            q0, p0, steps, delta, params, boundary_radius, omega,
+            order=order, metric=metric, dtype=dtype)
         rho, th, ph = cartesian_to_spherical(
             final_q[:, 1], final_q[:, 2], final_q[:, 3])
         rho = jnp.where(status == STATUS_CAPTURED, jnp.zeros_like(rho), rho)
@@ -235,7 +224,7 @@ def render_kerr_sharded(mesh, bg_array, obs_x, fov, mass, spin,
 
 @partial(jax.jit,
          static_argnames=("mesh", "height", "width", "steps", "flip_theta",
-                          "flip_phi", "has_background", "dtype", "backend",
+                          "flip_phi", "has_background", "dtype",
                           "order", "prograde", "profile", "camera_moving"))
 def render_disk_sharded(mesh, bg_array, obs_x, fov, mass, spin,
                         boundary_radius, steps, delta, omega,
@@ -245,7 +234,7 @@ def render_disk_sharded(mesh, bg_array, obs_x, fov, mass, spin,
                         camera_omega=0.0,
                         *, height, width, flip_theta=False, flip_phi=False,
                         has_background=True, dtype=jnp.float32,
-                        order=2, backend="xla", charge=0.0, prograde=True,
+                        order=2, charge=0.0, prograde=True,
                         profile="shakura", camera_moving=False):
     """Accretion-disk frames over the ('frames', 'rays') mesh.
 
@@ -295,19 +284,10 @@ def render_disk_sharded(mesh, bg_array, obs_x, fov, mass, spin,
             q0, p0, _ = cartesian_ics_from_pixels(obs_pos, pix,
                                                   params=params,
                                                   g_inv_fn=g_inv_fn)
-        if backend == "pallas":
-            from ..engine.integrate_pallas_ks import \
-                integrate_batch_pallas_disk
-            final_q, final_p, status, n_steps, hit_q, hit_p = \
-                integrate_batch_pallas_disk(
-                    q0, p0, steps, delta, params, boundary_radius, omega,
-                    r_in, r_out, order=order,
-                    compensated=dtype == jnp.float32)
-        else:
-            final_q, final_p, status, n_steps, hit_q, hit_p = \
-                integrate_batch_disk(
-                    q0, p0, steps, delta, params, boundary_radius, omega,
-                    r_in, r_out, order=order)
+        final_q, final_p, status, n_steps, hit_q, hit_p = \
+            integrate_batch_disk(
+                q0, p0, steps, delta, params, boundary_radius, omega,
+                r_in, r_out, order=order)
         _, disk_rgb01 = shade_disk(
             hit_q, hit_p, params, r_obs_bl, r_in, prograde=prograde,
             t_peak=t_peak, exposure=exposure, theta_obs=th_obs,

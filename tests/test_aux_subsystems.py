@@ -259,36 +259,21 @@ def test_scene_boundary_validation():
     SceneConfig(boundary_radius=31.0, observer_distance=30.0)  # default: ok
 
 
-def test_compile_cache_is_machine_salted(tmp_path, monkeypatch):
-    """The persistent compile cache must never serve another machine's
-    XLA:CPU AOT executables (loading one can SIGILL/segfault the whole
-    process — observed crashing the suite when ~/.cache/grtrace-jax was
-    written by a host with different CPU features).  Entries therefore
-    live under a per-machine fingerprint subdirectory: foreign files at
-    the shared root are invisible to this process."""
+def test_compile_cache_off_on_cpu_without_env(monkeypatch):
+    """On the CPU the persistent cache stays off unless
+    JAX_COMPILATION_CACHE_DIR asks for it (XLA:CPU executable
+    serialization has crashed long-lived processes), and the call undoes a
+    directory set earlier in the process."""
     import jax
 
     import grtrace
 
-    fp = grtrace._cache_fingerprint()
-    assert fp == grtrace._cache_fingerprint()          # deterministic
-    assert len(fp) == 16 and all(c in "0123456789abcdef" for c in fp)
-
-    # a "foreign cache": entries at the shared root, as an unsalted
-    # grtrace (or another machine's salt) would have left them
-    root = tmp_path / "shared-cache"
-    root.mkdir()
-    (root / "jit_render-deadbeef").write_bytes(b"\x7fELF-not-for-this-cpu")
-
-    monkeypatch.setenv("GRTRACE_COMPILE_CACHE", str(root))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     old = jax.config.jax_compilation_cache_dir
     try:
-        grtrace.enable_compilation_cache()
-        salted = jax.config.jax_compilation_cache_dir
-        assert salted == str(root / fp)
-        import os
-        assert os.path.isdir(salted)
-        # the foreign entry is not inside the directory jax reads
-        assert "jit_render-deadbeef" not in os.listdir(salted)
+        jax.config.update("jax_compilation_cache_dir",
+                          grtrace.default_cache_dir())
+        grtrace.enable_compilation_cache(allow_backend_init=True)
+        assert jax.config.jax_compilation_cache_dir is None
     finally:
         jax.config.update("jax_compilation_cache_dir", old)

@@ -138,3 +138,32 @@ def test_load_background_resize(tmp_path):
     assert full.shape == (64, 128, 3)
     small = load_background(str(tmp_path / "t.png"), size=(20, 10))
     assert small.shape == (10, 20, 3)  # PIL size is (w, h)
+
+
+def test_main_path_imports_only_core_packages(tmp_path):
+    """The main path (`cli.main --no-plots`, procedural background, CSV and
+    PNG artifacts) needs nothing beyond JAX, numpy and scipy: Pillow,
+    pandas and matplotlib are optional (image-file backgrounds, GIFs,
+    plots) and must not be imported.  Runs in a fresh interpreter so the
+    suite's own imports do not count."""
+    import subprocess
+    import sys
+    code = (
+        "import sys, jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "from grtrace.cli.main import main\n"
+        "main(['--size', '8', '--steps', '300', '--delta', '0.1',\n"
+        "      '--background', 'procedural:starfield', '--n-samples', '2',\n"
+        f"      '--out-dir', {str(tmp_path)!r}, '--no-plots'])\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "bad = top & {'PIL', 'pandas', 'matplotlib'}\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "OK" in r.stdout
+    for name in ("images/manual_output.png", "photon_data.csv",
+                 "sampled_rays.csv"):
+        assert (tmp_path / name).stat().st_size > 0

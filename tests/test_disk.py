@@ -179,38 +179,29 @@ def test_disk_statuses_match_generic_engine_for_missers():
                                atol=1e-8)
 
 
-def test_disk_pallas_kernel_matches_xla_path():
-    """The disk twin of the KS Pallas kernel (interpret mode) agrees with
-    the autodiff XLA disk engine: same statuses, crossings AND momenta to
-    the staggered-vs-plain fusion-rounding scale (both paths record the
-    same p2 momentum copy — the staggered kernel's exact step-boundary
-    pair is (q1, p2), and the XLA recorder matches it deliberately)."""
-    from grtrace.engine.integrate_pallas_ks import integrate_batch_pallas_disk
-
-    q0, p0, (fq, fp, status, ns, hq, hp), r_in, params = _disk_batch(
-        steps=400)
-    out_p = integrate_batch_pallas_disk(q0, p0, 400, 0.05, params, 31.0,
-                                        1.0, r_in, 14.0, interpret=True)
-    fq_p, fp_p, st_p, ns_p, hq_p, hp_p = (np.asarray(v) for v in out_p)
-    status, ns = np.asarray(status), np.asarray(ns)
-    assert (status == st_p).all()
-    hit = status == STATUS_DISK
-    assert hit.sum() >= 2  # the 400-step budget reaches the near annulus
-    # missers retired identically (parity-of-steps: same guard semantics)
-    assert (ns[~hit] == ns_p[~hit]).all()
-    np.testing.assert_allclose(hq_p[hit], np.asarray(hq)[hit], atol=1e-7)
-    np.testing.assert_allclose(hp_p[hit], np.asarray(hp)[hit], atol=1e-7)
-
-
-def test_disk_pallas_zero_steps_noop():
-    from grtrace.engine.integrate_pallas_ks import integrate_batch_pallas_disk
-
+def test_disk_zero_steps_noop():
+    """steps == 0 through the crossing-monitor path: inputs come back
+    bit-for-bit, nobody hits the disk, nobody took a step."""
     q0, p0, _, r_in, params = _disk_batch(size=4, steps=1)
-    fq, fp, st, ns, hq, hp = integrate_batch_pallas_disk(
-        q0, p0, 0, 0.05, params, 31.0, 1.0, r_in, 14.0, interpret=True)
+    fq, fp, st, ns, hq, hp = integrate_batch_disk(
+        q0, p0, 0, 0.05, params, 31.0, 1.0, r_in, 14.0)
     np.testing.assert_array_equal(np.asarray(fq), np.asarray(q0))
     assert not (np.asarray(st) == STATUS_DISK).any()
     assert (np.asarray(ns) == 0).all()
+
+
+def test_disk_render_ignores_schwarzschild_backend():
+    """Disk frames always take the crossing-monitor XLA path: asking for
+    the Schwarzschild GPU kernel changes nothing (and needs no GPU)."""
+    def run(backend):
+        scene = SceneConfig(size=12, metric="kerr", spin=0.9, n_samples=0,
+                            integrator=IntegratorConfig(
+                                steps=600, delta=0.08, dtype="float64",
+                                backend=backend))
+        return render_disk(scene, DiskConfig())
+    a, b = run("xla"), run("pallas")
+    assert a.counts == b.counts
+    np.testing.assert_array_equal(a.image, b.image)
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,11 @@ CPU float64 reference.  The golden file tests/golden/oracle_escape_headline.npz
 chaotic near-photon-sphere band (min r < 3.5) where no two finite-precision
 implementations can agree.
 
-These tests exercise the EXACT compensated step function the TPU Pallas
-kernel compiles (physics.hamiltonian.fantasy_step_ord2_eqc) via its XLA twin
-at the full 200k budget (interpret-mode Pallas at 200k steps is infeasible on
-CPU); bench.py re-measures the Mosaic-compiled kernel against the same golden
-on the real chip every round.
+These tests exercise the EXACT compensated step functions the Pallas GPU
+kernel compiles (physics.hamiltonian.staggered_eqc) via its XLA twin at the
+full 200k budget (interpret-mode Pallas at 200k steps is infeasible on CPU);
+chip_smoke.py re-measures the production path on the GPU against the same
+golden.
 """
 import os
 
@@ -56,11 +56,10 @@ def _escape_errors(fq, ns, golden):
 
 
 def test_compensated_f32_meets_1e5_at_headline_budget(golden, probe_ics_f32):
-    """The compensated float32 step (the production TPU kernel's math) hits
-    the 1e-5 escape-direction target at the full 200k-step budget.
-    Measured on the real chip (Mosaic-compiled kernel): max 2.8e-6,
-    median 1.9e-7 — this test pins the same bound for the shared step
-    function through XLA."""
+    """The compensated float32 step (the production kernel's math) hits
+    the 1e-5 escape-direction target at the full 200k-step budget — this
+    test pins the bound for the shared step function through XLA on the
+    CPU; chip_smoke.py asserts it for the GPU kernel."""
     g = golden
     q0, p0 = probe_ics_f32
     fq, fp, st, ns = integrate_batch_compensated(
@@ -79,8 +78,8 @@ def test_compensated_f32_meets_1e5_at_headline_budget(golden, probe_ics_f32):
 
 def test_plain_f32_documented_tail(golden, probe_ics_f32):
     """Documents WHY compensation is the default: the plain float32 path's
-    escape error has a tail well above 1e-5 at this budget (measured 2e-4 on
-    chip from exit-step quantization + sqrt(n) accumulation drift).  If this
+    escape error has a tail well above 1e-5 at this budget (~2e-4, from
+    exit-step quantization + sqrt(n) accumulation drift).  If this
     test ever fails because plain f32 got BETTER than 1e-5, compensation can
     be retired — that's a feature, not a bug."""
     g = golden
@@ -97,7 +96,8 @@ def test_plain_f32_documented_tail(golden, probe_ics_f32):
 def test_pallas_compensated_matches_xla_twin(golden, probe_ics_f32):
     """The compensated Pallas kernel (interpret mode) and its XLA twin run
     the same step function — results must agree to float32 roundoff over a
-    short budget.  On-chip Mosaic parity is asserted by bench.py each round."""
+    short budget.  Parity of the compiled kernel is asserted on the GPU by
+    chip_smoke.py and tests/test_gpu_kernel.py."""
     g = golden
     q0, p0 = probe_ics_f32
     q0 = jnp.asarray(q0[:24], jnp.float32)

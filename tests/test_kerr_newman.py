@@ -12,7 +12,6 @@ import pytest
 
 from grtrace.engine.integrate import STATUS_CAPTURED, STATUS_ESCAPED
 from grtrace.engine.integrate_generic import integrate_batch_generic
-from grtrace.engine.integrate_pallas_ks import integrate_batch_pallas_ks
 from grtrace.engine.render import render
 from grtrace.io.scene import IntegratorConfig, PatchConfig, SceneConfig
 from grtrace.physics.spacetime import build_null_4momentum, kerr_g_inv
@@ -96,8 +95,9 @@ def test_kn_cross_chart_agreement():
     assert (cap_bl & cap_ks).sum() >= min(cap_bl.sum(), cap_ks.sum()) - 1
 
 
-def test_pallas_ks_kerr_newman_matches_generic():
-    """The Pallas kernel's charge slot: interpret-mode == XLA generic."""
+def test_ksc_kerr_newman_matches_generic():
+    """The compensated KS integrator's charge slot == XLA generic."""
+    from grtrace.engine.integrate_ks import integrate_batch_ksc
     from grtrace.physics.camera import camera_rays_cartesian
     from grtrace.physics.spacetime import METRICS
 
@@ -109,12 +109,12 @@ def test_pallas_ks_kerr_newman_matches_generic():
 
     fq_x, _, st_x, ns_x = integrate_batch_generic(
         q0, p0, 1200, 0.05, params, 31.0, 1.0, metric="KerrSchild")
-    fq_p, _, st_p, ns_p = integrate_batch_pallas_ks(
-        q0, p0, 1200, 0.05, params, 31.0, 1.0, interpret=True)
+    fq_p, _, st_p, ns_p = integrate_batch_ksc(
+        q0, p0, 1200, 0.05, params, 31.0, 1.0)
     assert (np.asarray(st_x) == np.asarray(st_p)).all()
-    # exit steps exact except captured plungers, where the kernel's
-    # staggered composition can move the blow-up guard trip by +-1 step
-    # (chaotic amplification of last-ulp rounding; see test_pallas_ks)
+    # exit steps exact except captured plungers, where the staggered
+    # composition can move the blow-up guard trip by +-1 step (chaotic
+    # amplification of last-ulp rounding; see test_pallas_ks)
     ns_x, ns_p = np.asarray(ns_x), np.asarray(ns_p)
     cap = np.asarray(st_x) == 1
     assert (ns_x[~cap] == ns_p[~cap]).all()

@@ -1,14 +1,18 @@
-"""Pallas integrator (interpret mode on CPU) vs the XLA backend.
+"""Pallas GPU kernel (interpret mode on CPU) vs the XLA backend.
 
-On real TPU hardware the same kernel compiles via Mosaic; interpret mode
-checks the layout/masking/early-exit logic is equivalent to the XLA
-reference backend.
+On the GPU the same kernel compiles through Triton; interpret mode checks
+that the layout/padding/masking/early-exit logic is equivalent to the XLA
+reference backend.  The wrapper's choices (backend resolution, refusal
+without a GPU, compensated dispatch) are pinned here too.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
+from grtrace.engine import integrate as integ
 from grtrace.engine.integrate import integrate_batch
-from grtrace.engine.integrate_pallas import TILE, integrate_batch_pallas
+from grtrace.engine.integrate_pallas import BLOCK, integrate_batch_pallas
 from grtrace.physics.camera import camera_rays
 
 ARGS = (2000, 0.05, 2.0, 31.0, 1.0)
@@ -39,7 +43,7 @@ def test_padding_rays_inert():
     """Non-multiple-of-TILE batches pad with parked rays that must not
     affect outputs or step counts."""
     q0, p0 = _ics(5)  # 25 rays << TILE
-    assert q0.shape[0] < TILE
+    assert q0.shape[0] < BLOCK
     fq, fp, st, ns = integrate_batch_pallas(q0, p0, *ARGS, interpret=True)
     assert fq.shape == (25, 4)
     assert ns.shape == (25,)
@@ -135,7 +139,7 @@ def test_unroll_invariance_compensated_equatorial():
     exactly unroll-invariant.  Positions are NOT pinned byte-exact here:
     different unrolled bodies fuse the Kahan ops differently and chaotic
     near-capture rays amplify that compile-level ulp noise to ~1e-3
-    (same class of effect the Mosaic-vs-XLA parity budgets already
+    (same class of effect the kernel-vs-XLA parity budgets already
     cover); the validate probes only read statuses."""
     q0, p0 = _ics(12)
     q0 = q0.astype(jnp.float32)
@@ -147,3 +151,51 @@ def test_unroll_invariance_compensated_equatorial():
                                  unroll=8, **kw)
     assert bool((base[2] == out[2]).all())
     assert bool((base[3] == out[3]).all())
+
+
+def test_padding_one_past_block():
+    """N = BLOCK + 1: two programs, the second holding one real ray and
+    BLOCK - 1 parked padding rays; outputs are unpadded to N and match
+    the XLA backend ray for ray."""
+    q0, p0 = _ics(12)  # 144 rays
+    q0, p0 = q0[:BLOCK + 1], p0[:BLOCK + 1]
+    fq, fp, st, ns = integrate_batch_pallas(q0, p0, *ARGS, interpret=True)
+    assert fq.shape == (BLOCK + 1, 4) and ns.shape == (BLOCK + 1,)
+    _, _, st_x, ns_x = integrate_batch(q0, p0, *ARGS)
+    assert bool((st == st_x).all())
+    assert bool((ns == ns_x).all())
+
+
+def test_resolve_backend_choice(monkeypatch):
+    """'auto' picks the kernel on a GPU and the XLA path elsewhere; an
+    explicit choice is kept; anything else is refused."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert integ.resolve_backend("auto") == "pallas"
+    assert integ.resolve_backend("xla") == "xla"
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert integ.resolve_backend("auto") == "xla"
+    assert integ.resolve_backend("pallas") == "pallas"
+    with pytest.raises(ValueError):
+        integ.resolve_backend("cuda")
+
+
+def test_explicit_kernel_without_gpu_raises():
+    """backend='pallas' on a machine with no GPU fails loudly: no
+    fallback to interpret mode or to the XLA path."""
+    q0, p0 = _ics(4)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        integ.integrate_dispatch(q0, p0, *ARGS, backend="pallas",
+                                 equatorial=True)
+
+
+def test_dispatch_f32_equatorial_is_compensated():
+    """Off the GPU the production float32 path is still the compensated
+    integrator (the kernel's XLA twin), never the plain f32 step whose
+    escape-direction tail misses the 1e-5 contract."""
+    q0, p0 = _ics(6)
+    q0, p0 = q0.astype(jnp.float32), p0.astype(jnp.float32)
+    out = integ.integrate_dispatch(q0, p0, *ARGS, backend="auto",
+                                   equatorial=True)
+    ref = integ.integrate_batch_compensated(q0, p0, *ARGS)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

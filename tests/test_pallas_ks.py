@@ -1,18 +1,22 @@
-"""Kerr-Schild Pallas kernel vs the generic autodiff engine.
+"""Kerr-Schild integrators: hand-derived flows, the compensated
+integrate_batch_ksc and the chart router.
 
-Same oracle pattern as test_pallas (Schwarzschild): the interpret-mode
-kernel must reproduce the XLA generic path's statuses, step counts and
-finals on float64, where op-reordering noise cannot be chaotically
-amplified.  The analytic flows themselves are pinned to the autodiff
-flows at roundoff in test_kerr_schild_flows.
+The compensated integrator must reproduce the generic autodiff engine's
+statuses, step counts and finals on float64, where op-reordering noise
+cannot be chaotically amplified; in float32 it must beat the plain flows
+against the float64 truth.  The analytic flows themselves are pinned to
+the autodiff flows at roundoff.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from grtrace.engine.integrate_generic import integrate_batch_generic
-from grtrace.engine.integrate_pallas_ks import integrate_batch_pallas_ks
+from grtrace.engine.integrate_ks import integrate_batch_ksc
 from grtrace.physics.camera import camera_rays_cartesian
 from grtrace.physics.spacetime import METRICS, kerr_schild_g_inv, make_step
 from grtrace.physics.kerr_schild import (fantasy_step_ord2_ks,
@@ -23,10 +27,10 @@ SPIN = 0.9
 PARAMS = jnp.array([1.0, SPIN])
 
 
-def _camera_batch(size=12, dist=30.0):
+def _camera_batch(size=12, dist=30.0, params=PARAMS):
     q0, p0, _ = camera_rays_cartesian(
         jnp.array([dist, 0.0, 0.0]), jnp.radians(80.0), size, size,
-        params=PARAMS, g_inv_fn=METRICS["KerrSchild"], dtype=jnp.float64)
+        params=params, g_inv_fn=METRICS["KerrSchild"], dtype=jnp.float64)
     return q0.reshape(-1, 4), p0.reshape(-1, 4)
 
 
@@ -67,85 +71,67 @@ def test_kerr_schild_flows_match_autodiff():
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("order", [2, 4])
-def test_pallas_ks_matches_generic(order):
-    """Interpret-mode kernel == XLA generic engine: statuses and per-ray
-    step counts exact, escaped finals to f64 op-reordering noise."""
-    q0, p0 = _camera_batch(size=10)
-    steps, delta, omega = 1200, 0.05, 1.0
-
-    fq_x, _, st_x, ns_x = integrate_batch_generic(
-        q0, p0, steps, delta, PARAMS, 31.0, omega, order=order,
-        metric="KerrSchild")
-    fq_p, _, st_p, ns_p = integrate_batch_pallas_ks(
-        q0, p0, steps, delta, PARAMS, 31.0, omega, order=order,
-        interpret=True)
-
-    assert (np.asarray(st_x) == np.asarray(st_p)).all()
-    # Exit steps: exact for escapers/survivors; captured plungers may trip
-    # the blow-up guard +-1 step from the generic engine — the kernel's
-    # staggered (half-A-fused) composition rounds differently at the last
-    # ulp, and the horizon blow-up amplifies that chaotically even in f64.
-    # Status, park point and classification are unaffected.
-    ns_x, ns_p = np.asarray(ns_x), np.asarray(ns_p)
+def _assert_matches_generic(fq_x, st_x, ns_x, fq_c, st_c, ns_c):
+    """Statuses exact; exit steps exact except captured plungers, where
+    the staggered composition can move the blow-up guard trip by a step or
+    two (chaotic amplification of last-ulp rounding at the horizon, even
+    in f64); escaped finals to f64 op-reordering noise."""
+    assert (np.asarray(st_x) == np.asarray(st_c)).all()
+    ns_x, ns_c = np.asarray(ns_x), np.asarray(ns_c)
     cap = np.asarray(st_x) == 1
-    assert (ns_x[~cap] == ns_p[~cap]).all()
-    assert np.abs(ns_x[cap] - ns_p[cap]).max() <= 2
-    assert (ns_x == ns_p).mean() > 0.9
+    assert (ns_x[~cap] == ns_c[~cap]).all()
+    if cap.any():
+        assert np.abs(ns_x[cap] - ns_c[cap]).max() <= 2
+    assert (ns_x == ns_c).mean() > 0.9
     esc = np.asarray(st_x) == 2
     assert esc.any()
-    np.testing.assert_allclose(np.asarray(fq_x)[esc], np.asarray(fq_p)[esc],
+    np.testing.assert_allclose(np.asarray(fq_x)[esc], np.asarray(fq_c)[esc],
                                atol=1e-8)
 
 
-def test_pallas_ks_sort_roundtrip():
-    """Cost-sorted tiling must return results in original ray order."""
-    q0, p0 = _camera_batch(size=8)
-    kw = dict(steps=800, delta=0.05, params=PARAMS, r_max=31.0, omega=1.0,
-              interpret=True)
-    fq_s, _, st_s, ns_s = integrate_batch_pallas_ks(q0, p0, sort_rays=True,
-                                                    **kw)
-    fq_u, _, st_u, ns_u = integrate_batch_pallas_ks(q0, p0, sort_rays=False,
-                                                    **kw)
-    assert (np.asarray(st_s) == np.asarray(st_u)).all()
-    assert (np.asarray(ns_s) == np.asarray(ns_u)).all()
-    np.testing.assert_allclose(np.asarray(fq_s), np.asarray(fq_u), rtol=0,
-                               atol=0)
+@pytest.mark.parametrize("order", [2, 4])
+def test_ksc_matches_generic(order):
+    """float64 compensated staggered flows == the XLA generic engine."""
+    q0, p0 = _camera_batch(size=10)
+    args = (1200, 0.05, PARAMS, 31.0, 1.0)
+    out_x = integrate_batch_generic(q0, p0, *args, order=order,
+                                    metric="KerrSchild")
+    out_c = integrate_batch_ksc(q0, p0, *args, order=order)
+    _assert_matches_generic(out_x[0], out_x[2], out_x[3],
+                            out_c[0], out_c[2], out_c[3])
+
+
+def test_ksc_zero_steps_noop():
+    """steps == 0 neither opens nor closes the staggered state: the
+    inputs come back bit-for-bit and nobody took a step."""
+    q0, p0 = _camera_batch(size=6)
+    fq, fp, st, ns = integrate_batch_ksc(q0, p0, 0, 0.05, PARAMS, 31.0, 1.0)
+    np.testing.assert_array_equal(np.asarray(fq), np.asarray(q0))
+    np.testing.assert_array_equal(np.asarray(fp), np.asarray(p0))
+    assert (np.asarray(ns) == 0).all()
 
 
 @pytest.mark.parametrize("order,charge", [(2, 0.0), (4, 0.3)])
-def test_ksc_kernel_bit_exact_twin(order, charge):
-    """The compensated (Kahan double-float32) KS kernel and its XLA twin
-    integrate_batch_ksc build their loop bodies from the same functions
-    (engine.integrate_ks.make_ks_step) — results must be bit-identical in
-    interpret mode, across orders and with Kerr-Newman charge."""
-    from grtrace.engine.integrate_ks import integrate_batch_ksc
-
-    q0, p0 = _camera_batch(size=10)
-    q0 = q0.astype(jnp.float32)
-    p0 = p0.astype(jnp.float32)
-    params = jnp.array([1.0, SPIN, charge], jnp.float32)
-    f32 = jnp.float32
-    kw = dict(steps=600, delta=f32(0.05), params=params, r_max=f32(31.0),
-              omega=f32(1.0), order=order)
-
-    qt, pt, st, nt = integrate_batch_ksc(q0, p0, **kw)
-    qk, pk, sk, nk = integrate_batch_pallas_ks(q0, p0, interpret=True,
-                                               compensated=True, **kw)
-    np.testing.assert_array_equal(np.asarray(qk), np.asarray(qt))
-    np.testing.assert_array_equal(np.asarray(pk), np.asarray(pt))
-    np.testing.assert_array_equal(np.asarray(sk), np.asarray(st))
-    np.testing.assert_array_equal(np.asarray(nk), np.asarray(nt))
+def test_ksc_charge_slot_matches_generic(order, charge):
+    """The third params slot (Kerr-Newman charge) threads through the
+    compensated flows, the guard and the Bardeen rescue exactly as through
+    the autodiff engine, across orders."""
+    params = jnp.array([1.0, SPIN, charge])
+    q0, p0 = _camera_batch(size=10, params=params)
+    args = (1200, 0.05, params, 31.0, 1.0)
+    out_x = integrate_batch_generic(q0, p0, *args, order=order,
+                                    metric="KerrSchild")
+    out_c = integrate_batch_ksc(q0, p0, *args, order=order)
+    _assert_matches_generic(out_x[0], out_x[2], out_x[3],
+                            out_c[0], out_c[2], out_c[3])
 
 
 def test_ksc_f32_accuracy_vs_f64_oracle():
     """The point of the compensated KS flows: float32 escaped finals stay
     within ~1e-5 of the float64 generic engine where the plain f32 flows
-    drift by ~1e-4 already at this short budget (the gap widens as
+    drift far more already at this short budget (the gap widens as
     sqrt(steps); at the 30k-step production budget the plain drift is the
     measured ~3 px prograde shadow-edge error)."""
-    from grtrace.engine.integrate_ks import integrate_batch_ksc
-
     q0, p0 = _camera_batch(size=10)
     steps, delta, omega = 1500, 0.05, 1.0
     fq64, _, st64, _ = integrate_batch_generic(
@@ -156,13 +142,12 @@ def test_ksc_f32_accuracy_vs_f64_oracle():
     p3 = jnp.array([1.0, SPIN, 0.0], f32)
     qc, _, sc, _ = integrate_batch_ksc(q32, p32, steps, f32(delta), p3,
                                        f32(31.0), f32(omega))
-    qp, _, sp, _ = integrate_batch_pallas_ks(q32, p32, steps, f32(delta),
-                                             p3, f32(31.0), f32(omega),
-                                             interpret=True,
-                                             compensated=False)
+    qp, _, sp, _ = integrate_batch_generic(q32, p32, steps, f32(delta), p3,
+                                           f32(31.0), f32(omega),
+                                           metric="KerrSchild")
     st64 = np.asarray(st64)
     assert (np.asarray(sc) == st64).all()
-    esc = st64 == 2
+    esc = (st64 == 2) & (np.asarray(sp) == 2)
     assert esc.sum() > 20
     err_comp = np.abs(np.asarray(qc)[esc, 1:]
                       - np.asarray(fq64)[esc, 1:]).max()
@@ -174,60 +159,77 @@ def test_ksc_f32_accuracy_vs_f64_oracle():
         f"{err_plain:.2e}")
 
 
-def test_render_generic_backend_arg():
-    """The backend static arg threads through render_pixels_generic (the
-    pallas value itself needs a real TPU — Mosaic doesn't lower on CPU —
-    so CPU coverage pins the xla value and the kernel equivalence above)."""
+def _render_kw(dtype, size):
+    return dict(
+        bg_array=jnp.zeros((1, 1, 3), dtype=jnp.uint8),
+        obs_x=dtype(30.0), fov=dtype(np.radians(80.0)), mass=dtype(1.0),
+        spin=dtype(SPIN), boundary_radius=dtype(31.0), steps=800,
+        delta=dtype(0.05), omega=dtype(1.0),
+        patch_center_theta=dtype(np.pi / 2), patch_center_phi=dtype(np.pi),
+        patch_size_theta=dtype(np.pi), patch_size_phi=dtype(2 * np.pi),
+        height=size, width=size, has_background=False, dtype=dtype,
+        metric="KerrSchild")
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+    monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
+def test_render_generic_backend_arg(monkeypatch):
+    """render_pixels_generic takes no backend: the chart and dtype pick the
+    integrator.  float64 Kerr-Schild rides the autodiff engine (already at
+    roundoff), and the frame has a shadow."""
+    import grtrace.engine.integrate_generic as ig
+    import grtrace.engine.integrate_ks as iks
     from grtrace.engine.render_generic import render_pixels_generic
 
-    size = 8
-    bg = jnp.zeros((1, 1, 3), dtype=jnp.uint8)
-    common = dict(
-        bg_array=bg, obs_x=jnp.float64(30.0),
-        fov=jnp.float64(np.radians(80.0)), mass=jnp.float64(1.0),
-        spin=jnp.float64(SPIN), boundary_radius=jnp.float64(31.0),
-        steps=800, delta=jnp.float64(0.05), omega=jnp.float64(1.0),
-        patch_center_theta=jnp.float64(np.pi / 2),
-        patch_center_phi=jnp.float64(np.pi),
-        patch_size_theta=jnp.float64(np.pi),
-        patch_size_phi=jnp.float64(2 * np.pi),
-        height=size, width=size, has_background=False,
-        dtype=jnp.float64, metric="KerrSchild")
-    out_x = render_pixels_generic(**common, backend="xla")
-    assert int(np.asarray(out_x["count_vec"])[0]) > 0  # some capture
+    ksc = _spy(monkeypatch, iks, "integrate_batch_ksc")
+    gen = _spy(monkeypatch, ig, "integrate_batch_generic")
+    jax.clear_caches()
+    out = render_pixels_generic(**_render_kw(jnp.float64, 9))
+    assert int(np.asarray(out["count_vec"])[0]) > 0  # some capture
+    assert gen and not ksc
 
 
-def test_unroll_invariance_ks():
-    """KS kernels: status and n_steps are unroll-invariant at any unroll;
-    at a divisor unroll the whole output is byte-identical (licenses
-    engine.validate's small-unroll KS probe kernels — the boundary
-    bisections only consume statuses)."""
-    q0, p0 = _camera_batch(10)
-    q0 = q0.astype(jnp.float32)
-    p0 = p0.astype(jnp.float32)
-    kw = dict(steps=600, delta=0.05, params=PARAMS.astype(jnp.float32),
-              r_max=31.0, omega=1.0, compensated=True, interpret=True)
-    base = integrate_batch_pallas_ks(q0, p0, unroll=1, **kw)
-    out = integrate_batch_pallas_ks(q0, p0, unroll=8, **kw)  # 600 % 8 == 0
-    for a, b in zip(base, out):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    out = integrate_batch_pallas_ks(q0, p0, unroll=7, **kw)  # remainder 5
-    assert bool((base[2] == out[2]).all())
-    assert bool((base[3] == out[3]).all())
+def test_f32_kerr_schild_render_routes_to_ksc(monkeypatch):
+    """float32 Kerr-Schild frames take the compensated flows, never the
+    uncompensated autodiff engine (which drifts ~3 px at the prograde
+    shadow edge), and classify exactly as integrate_batch_ksc does."""
+    import grtrace.engine.integrate_generic as ig
+    import grtrace.engine.integrate_ks as iks
+    from grtrace.engine.render_generic import render_pixels_generic
+
+    ksc = _spy(monkeypatch, iks, "integrate_batch_ksc")
+    gen = _spy(monkeypatch, ig, "integrate_batch_generic")
+    jax.clear_caches()
+    out = render_pixels_generic(**_render_kw(jnp.float32, 7))
+    assert ksc and not gen
+    q0 = jnp.asarray(out["q0"]).reshape(-1, 4)
+    p0 = jnp.asarray(out["p0"]).reshape(-1, 4)
+    f32 = jnp.float32
+    _, _, st, _ = integrate_batch_ksc(q0, p0, 800, f32(0.05),
+                                      jnp.array([1.0, SPIN, 0.0], f32),
+                                      f32(31.0), f32(1.0))
+    np.testing.assert_array_equal(np.asarray(out["status"]).reshape(-1),
+                                  np.asarray(st))
 
 
-def test_unroll_invariance_subrings():
-    """Crossing records (count + per-order events) are part of the
-    divisor-unroll byte-identity contract too."""
-    from grtrace.engine.integrate_pallas_ks import (
-        integrate_batch_pallas_subrings)
-    q0, p0 = _camera_batch(8)
-    q0 = q0.astype(jnp.float32)
-    p0 = p0.astype(jnp.float32)
-    kw = dict(steps=600, delta=0.05, params=PARAMS.astype(jnp.float32),
-              r_max=31.0, omega=1.0, n_orders=2, compensated=True,
-              interpret=True)
-    base = integrate_batch_pallas_subrings(q0, p0, unroll=1, **kw)
-    out = integrate_batch_pallas_subrings(q0, p0, unroll=8, **kw)
-    for a, b in zip(base, out):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+def test_no_kerr_schild_kernel_module_left():
+    """The Kerr-Schild Pallas kernels were removed with their call sites:
+    the module is gone and no source file names it or the Pallas API of
+    the machine this code was first written for."""
+    assert importlib.util.find_spec(
+        "grtrace.engine.integrate_pallas_ks") is None
+    root = pathlib.Path(__file__).resolve().parents[1]
+    gone = ("integrate_pallas_ks", "pallas." + "tp" + "u", "plt" + "pu")
+    for path in sorted(root.glob("grtrace/**/*.py")) + [root / "bench.py"]:
+        text = path.read_text()
+        for word in gone:
+            assert word not in text, f"{path.name} mentions {word}"

@@ -107,7 +107,7 @@ def bg_pair():
     gen = render_pixels_generic(
         bg, *common, 200_000, jnp.float64(0.02), jnp.float64(0.0),
         *patch, height=size, width=size, dtype=jnp.float64,
-        metric="KerrSchild", order=2, backend="xla")
+        metric="KerrSchild", order=2)
     ex = render_pixels_background_exact(
         bg, *common, *patch, height=size, width=size)
     return size, gen, ex

@@ -25,7 +25,7 @@ capture boundary against analytic results that never touch the integrator:
 Boundary positions are measured by batched radial bisection along image
 azimuths (sub-pixel, far sharper than counting mask pixels) and quoted in
 256x256-image pixels; everything must agree to well under the 1.5 px
-target (VERDICT.md round 1, item 5).
+target.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -37,7 +37,7 @@ def test_numeric_matches_analytic_subpixel():
     than f64 (whose clean winders just exhaust the step budget)."""
     for spin in (0.0, 0.9):
         psis_n, rho_n, _ = numeric_boundary(spin, n_psi=4, steps=12_000,
-                                            delta=0.02, backend="xla",
+                                            delta=0.02,
                                             dtype=jnp.float32, rounds=4)
         _, rho_a = analytic_boundary(spin, n_psi=4)
         assert np.abs(rho_n - rho_a).max() < 0.05, spin

@@ -1,12 +1,12 @@
-"""engine.validate — the on-chip validation harness, exercised on CPU.
+"""engine.validate — the on-device validation harness, exercised on CPU.
 
-The module's real job is running inside bench.py on the TPU (its results
-land in every round's BENCH_r*.json stderr block); these tests pin its
-logic on CPU so a harness bug can't silently produce green-looking
+The module's real job is running in chip_smoke.py on the GPU; these tests
+pin its logic on CPU so a harness bug can't silently produce green-looking
 validation numbers: the Schwarzschild boundary check must reproduce the
 arcsin formula through the XLA backend, the Bardeen predicate must flip
-exactly once across the shadow edge, and the KS parity check must report
-zero mismatches for the bit-exact kernel/twin pair.
+exactly once across the shadow edge, the Kerr check must land sub-pixel,
+and the kernel parity check must report zero mismatches for the
+interpret-mode kernel against its XLA twin.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,26 +34,21 @@ def test_bardeen_predicate_monotone_across_edge():
     assert esc[:, 1].all()
 
 
-def test_ks_parity_zero_mismatch_interpret():
-    out = val.ks_kernel_parity(size=8, steps=250, interpret=True)
+def test_kernel_parity_zero_mismatch_interpret():
+    """Interpret-mode kernel vs the XLA twin on the headline camera's
+    float32 rays (a small frame): both run the same step functions."""
+    out = val.kernel_parity(size=8, steps=512, interpret=True)
+    assert out["rays"] == 64
     assert out["status_mismatch"] == 0
+    assert out["status_mismatch_outside_band"] == 0
     assert out["exit_step_mismatch"] == 0
-    assert out["max_escape_pos_delta"] == 0.0
+    assert out["max_escape_angle_delta"] <= 1e-6
 
 
-def test_subring_parity_interpret():
-    """The subring twin agrees with the XLA subring engine: identical
-    statuses / crossing counts, events to the fusion-rounding +
-    f32-Kahan scale (both sides record the p2 copy)."""
-    out = val.subring_kernel_parity(size=10, steps=900, interpret=True,
-                                    n_orders=2)
-    assert out["status_mismatch"] == 0
-    assert out["count_mismatch"] == 0
-    assert out["max_crossings"] >= 1   # the scene actually crosses
-    # f32 harness config: the kernel side is Kahan-compensated, the XLA
-    # engine plain f32, so the event deltas carry the plain path's
-    # accumulated f32 rounding (~2e-4 over 900 steps), not just fusion
-    # rounding — the f64/plain-vs-plain 1e-9 contract is pinned in
-    # tests/test_subring.py
-    assert out["max_event_q_delta"] < 1e-3
-    assert out["max_event_p_delta"] < 1e-3
+def test_kerr_shadow_errors_cpu():
+    """The compensated f32 Kerr-Schild boundary at a = 0.9 lands sub-pixel
+    against Bardeen at every azimuth, through the same code chip_smoke.py
+    runs on the GPU (a coarser step here)."""
+    out = val.kerr_shadow_errors(steps=3000, delta=0.05, order=2)
+    assert len(out["px_err"]) == val.N_PSI
+    assert out["px_err_max"] < 1.0, out
